@@ -1,0 +1,22 @@
+"""recommenders_addons_tpu_torch — the dynamic-embedding framework in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+
+A port of ``recommenders_addons_tpu`` (JAX/XLA/Pallas), which stays beside
+it as the reference. Module and function names follow the JAX package, so
+each module here has its counterpart there; table state is a
+``TableState`` dataclass of tensors threaded state-in -> state-out.
+
+Every entry point takes ``device=`` and defaults to CUDA; without a card it
+raises unless the caller asks for ``device="cpu"``, where each kernel
+wrapper runs its plain PyTorch version.
+
+This slice covers the serving path::
+
+    python -m recommenders_addons_tpu_torch.serving --dir <export_dir>
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from recommenders_addons_tpu_torch import dynamic_embedding  # noqa: E402,F401

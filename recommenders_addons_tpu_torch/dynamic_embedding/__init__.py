@@ -1,0 +1,19 @@
+"""Public `dynamic_embedding` API of the port (the serving subset of the
+JAX package's ``dynamic_embedding``).
+
+Usage::
+
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+"""
+
+from recommenders_addons_tpu_torch.ops.hashtable import (  # noqa: F401
+    TableSpec,
+    TableState,
+)
+from recommenders_addons_tpu_torch.ops import hashtable as raw_table  # noqa: F401
+from recommenders_addons_tpu_torch.ops.variable import (  # noqa: F401
+    EvictStrategy,
+    Variable,
+)
+from recommenders_addons_tpu_torch.ops import serving  # noqa: F401
+from recommenders_addons_tpu_torch.ops.serving import freeze  # noqa: F401

@@ -1,0 +1,130 @@
+"""Key hashing / mixing utilities — bit-exact twins of the JAX package's
+``ops/hashing.py`` (SplitMix64 and murmur3 fmix32 finalizers).
+
+PyTorch has no CPU right shift for uint64, so all the math is done in
+int64: constants are written as their signed int64 values, multiplication
+wraps modulo 2^64, and a logical right shift is an arithmetic shift with
+the sign-extended bits masked off (``_srl``). Outputs are int64 tensors
+that hold the unsigned results: ``mix64`` returns the uint64 bits
+reinterpreted as int64, ``mix32`` the uint32 value in ``[0, 2^32)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Reserved sentinel marking an empty hashtable slot AND the canonical padding
+# id. Inputs equal to this value are never found and never inserted.
+EMPTY_KEY = -(1 << 63)
+# int32 tables get their own sentinel.
+EMPTY_KEY32 = -(1 << 31)
+
+_M32 = 0xFFFFFFFF
+
+
+def _signed64(u: int) -> int:
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+_SPLITMIX_C1 = _signed64(0xBF58476D1CE4E5B9)
+_SPLITMIX_C2 = _signed64(0x94D049BB133111EB)
+_MURMUR32_C1 = 0x85EBCA6B
+_MURMUR32_C2 = 0xC2B2AE35
+_SPLITMIX_C1_INV = _signed64(0x96DE1B173F119089)  # C1^-1 mod 2^64
+_SPLITMIX_C2_INV = _signed64(0x319642B2D24D8EC3)  # C2^-1 mod 2^64
+_MURMUR32_C1_INV = 0xA5CB9243
+_MURMUR32_C2_INV = 0x7ED1B41D
+
+
+def empty_key_for(dtype) -> int:
+    if dtype in (torch.int64, "int64"):
+        return EMPTY_KEY
+    if dtype in (torch.int32, "int32"):
+        return EMPTY_KEY32
+    raise ValueError(f"unsupported key dtype {dtype}; use int32 or int64")
+
+
+def _srl(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def mix64(keys: torch.Tensor) -> torch.Tensor:
+    """SplitMix64 finalizer: int64 keys -> mixed uint64 bits (as int64)."""
+    z = keys.to(torch.int64)
+    z = z ^ _srl(z, 30)
+    z = z * _SPLITMIX_C1
+    z = z ^ _srl(z, 27)
+    z = z * _SPLITMIX_C2
+    return z ^ _srl(z, 31)
+
+
+def mix32(keys: torch.Tensor) -> torch.Tensor:
+    """Murmur3 fmix32 finalizer: int32 keys (or uint32 values held in
+    int64) -> mixed uint32 value in an int64 tensor."""
+    z = keys.to(torch.int64) & _M32
+    z = z ^ (z >> 16)
+    z = (z * _MURMUR32_C1) & _M32
+    z = z ^ (z >> 13)
+    z = (z * _MURMUR32_C2) & _M32
+    return z ^ (z >> 16)
+
+
+def unmix64(z: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`mix64` (SplitMix64 is a bijection on 64 bits)."""
+    z = z.to(torch.int64)
+    z = z ^ _srl(z, 31) ^ _srl(z, 62)
+    z = z * _SPLITMIX_C2_INV
+    z = z ^ _srl(z, 27) ^ _srl(z, 54)
+    z = z * _SPLITMIX_C1_INV
+    return z ^ _srl(z, 30) ^ _srl(z, 60)
+
+
+def unmix32(z: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`mix32` (murmur3 fmix32 is a bijection on uint32)."""
+    z = z.to(torch.int64) & _M32
+    z = z ^ (z >> 16)
+    z = (z * _MURMUR32_C2_INV) & _M32
+    z = z ^ (z >> 13) ^ (z >> 26)
+    z = (z * _MURMUR32_C1_INV) & _M32
+    return z ^ (z >> 16)
+
+
+def _wrap32(u: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> int32 with the same bits."""
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+
+
+def unmix(z: torch.Tensor, key_dtype) -> torch.Tensor:
+    """Inverse of :func:`mix` for the given original key dtype."""
+    if key_dtype in (torch.int64, "int64"):
+        return unmix64(z)
+    return _wrap32(unmix32(z))
+
+
+def mix(keys: torch.Tensor) -> torch.Tensor:
+    """Dtype-dispatching mixer (see the module docstring for the output)."""
+    if keys.dtype == torch.int64:
+        return mix64(keys)
+    if keys.dtype == torch.int32:
+        return mix32(keys)
+    raise ValueError(f"unsupported key dtype {keys.dtype}")
+
+
+def bucket_of(keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """Bucket index in [0, num_buckets) from the LOW mixed bits (int32).
+
+    ``num_buckets`` must be a power of two.
+    """
+    if num_buckets & (num_buckets - 1):
+        raise ValueError("num_buckets must be a power of two")
+    return (mix(keys) & (num_buckets - 1)).to(torch.int32)
+
+
+def shard_of(keys: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """Shard index in [0, num_shards) from the HIGH mixed bits (int64
+    keys) or a second mix round (int32 keys) — decorrelated from
+    :func:`bucket_of`."""
+    m = mix(keys)
+    hi = _srl(m, 32) if keys.dtype == torch.int64 else mix32(m)
+    return (hi % num_shards).to(torch.int32)

@@ -1,0 +1,612 @@
+"""Dynamic-embedding hashtable — the port of the JAX package's
+``ops/hashtable.py``: the set-associative, score-evicting bucket table,
+in PyTorch, with the row gather and row scatter on the CUDA kernels of
+``ops/cuda_ops.py``.
+
+The design and the layout are the JAX package's (see its module
+docstring): a key hashes to ONE bucket of ``bucket_size`` slots; a batch
+insert ranks its keys within their buckets so that every write goes to a
+distinct slot (a match, a free slot, or the lowest-score victim); the
+value and any optimizer-slot columns of a key live in one packed row of a
+``[(C+1)*ch, 128]`` container of 32-bit words, whose last row block (at
+logical index ``C``) is the trash row that dropped writes land on. Keys are
+stored as two int32 planes, scores as int32.
+
+Functions keep the JAX names and the state-in -> state-out signatures.
+One difference: the row scatter writes ``state.rows`` IN PLACE (the JAX
+kernel aliases the table to its output), so the state a write is given
+shares its rows tensor with the state it returns. Key and score planes
+are written out of place.
+
+Only the serving path is ported here (probe, value gather, bulk upsert
+with eviction, dedup, export); the training plan is still to port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from recommenders_addons_tpu_torch.ops import cuda_ops, hashing
+from recommenders_addons_tpu_torch.utils.config import resolve_device
+
+_LANES = 128
+_INT32_MIN = -(1 << 31)
+
+
+def torch_dtype(dt) -> torch.dtype:
+    """A torch dtype from a torch dtype, a dtype name, or a numpy dtype."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    name = dt if isinstance(dt, str) else np.dtype(dt).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"unknown dtype {dt!r}")
+    return out
+
+
+def dtype_name(dt) -> str:
+    """The name the JAX package records for a dtype (``"bfloat16"``)."""
+    return str(torch_dtype(dt)).rsplit(".", 1)[-1]
+
+
+def _round_up_pow2(x: int) -> int:
+    return 1 << (int(x) - 1).bit_length()
+
+
+def _score_max(dtype) -> int:
+    return torch.iinfo(dtype).max
+
+
+def split_key(k64: torch.Tensor):
+    """int64 keys -> (lo, hi) int32 planes (the low and high 32 bits)."""
+    k = k64.to(torch.int64)
+    lo = hashing._wrap32(k & 0xFFFFFFFF)
+    hi = (k >> 32).to(torch.int32)  # arithmetic shift: exactly int32 range
+    return lo, hi
+
+
+def _split_int(k: int):
+    """:func:`split_key` of one Python int."""
+    lo = k & 0xFFFFFFFF
+    return (lo - (1 << 32) if lo >= 1 << 31 else lo), k >> 32
+
+
+def join_key(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(lo, hi) int32 planes -> int64 keys."""
+    return hi.to(torch.int64) * (1 << 32) + (lo.to(torch.int64) & 0xFFFFFFFF)
+
+
+@dataclasses.dataclass(frozen=True)
+class TableSpec:
+    """Static configuration of one table (hashable). Capacity is rounded
+    up to a power of two; dtypes are normalized to torch dtypes."""
+
+    dim: int
+    capacity: int = 1024 * 1024
+    key_dtype: Any = torch.int64
+    value_dtype: Any = torch.float32
+    score_dtype: Any = torch.int32
+    bucket_size: int = 64
+
+    def __post_init__(self):
+        if self.bucket_size & (self.bucket_size - 1):
+            raise ValueError("bucket_size must be a power of two")
+        cap = _round_up_pow2(max(int(self.capacity), self.bucket_size))
+        object.__setattr__(self, "capacity", cap)
+        for f in ("key_dtype", "value_dtype", "score_dtype"):
+            object.__setattr__(self, f, torch_dtype(getattr(self, f)))
+
+    @property
+    def num_buckets(self) -> int:
+        return self.capacity // self.bucket_size
+
+    @property
+    def empty_key(self) -> int:
+        return hashing.empty_key_for(self.key_dtype)
+
+
+@dataclasses.dataclass
+class TableState:
+    """One table's storage (see the module docstring for the layout).
+
+    ``rows[:, :dim]`` of the logical view is the embedding; slot ``i`` (by
+    ``slot_names`` order) occupies ``[dim*(1+i), dim*(2+i))``; the tail up
+    to the 128-word padded width is unused."""
+
+    key_lo: torch.Tensor  # [C] int32 (low 32 bits; EMPTY -> 0)
+    key_hi: torch.Tensor  # [C] int32 (high 32 bits; EMPTY -> int32 min)
+    rows: torch.Tensor  # [(C+1) * ch, 128] 32-bit container (physical)
+    scores: torch.Tensor  # [C] score dtype (eviction priority)
+    dim: int = 0
+    slot_names: tuple = ()
+    slot_inits: tuple = ()  # ((name, fresh-row fill), ...)
+    key_dtype_name: str = "int64"
+    value_dtype_name: str = "float32"
+
+    @property
+    def capacity(self) -> int:
+        return self.key_lo.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.key_lo.device
+
+    @property
+    def keys(self) -> torch.Tensor:
+        """[C] int64 (or key dtype) view of the stored keys."""
+        k = join_key(self.key_lo, self.key_hi)
+        if self.key_dtype_name != "int64":
+            k = k.to(torch_dtype(self.key_dtype_name))
+        return k
+
+    @property
+    def value_dtype(self) -> torch.dtype:
+        return torch_dtype(self.value_dtype_name)
+
+    @property
+    def width(self) -> int:
+        """Logical packed-row width in VALUE elements."""
+        return _packed_width(self.dim, len(self.slot_names),
+                             self.value_dtype)
+
+    @property
+    def chunks(self) -> int:
+        """Physical 128-word container rows per logical row."""
+        return self.width // (_LANES * _pack_factor(self.value_dtype))
+
+    @property
+    def rows_logical(self) -> torch.Tensor:
+        """[C, W] logical view of the physical rows (trash row excluded;
+        bitcast for sub-32-bit value dtypes)."""
+        return _to_logical_rows(self.rows, self.value_dtype,
+                                self.capacity, self.width)
+
+    @property
+    def values(self) -> torch.Tensor:
+        """[C, dim] view of the embedding columns."""
+        return self.rows_logical[..., : self.dim]
+
+    @property
+    def slots(self) -> Dict[str, torch.Tensor]:
+        """{name: [C, dim]} views of the optimizer slot columns."""
+        d = self.dim
+        rl = self.rows_logical
+        return {
+            name: rl[..., d * (1 + i): d * (2 + i)]
+            for i, name in enumerate(self.slot_names)
+        }
+
+    def slot_init(self, name: str) -> float:
+        return dict(self.slot_inits).get(name, 0.0)
+
+    def replace(self, **kw) -> "TableState":
+        return dataclasses.replace(self, **kw)
+
+
+def _container_dtype(value_dtype) -> torch.dtype:
+    """Physical storage dtype: a 32-bit container for sub-32-bit values
+    (bitcast-packed), so the row kernels move 32-bit words only."""
+    dt = torch_dtype(value_dtype)
+    if dt.itemsize == 2:
+        return torch.float32
+    if dt == torch.int8:
+        return torch.int32
+    return dt
+
+
+def _pack_factor(value_dtype) -> int:
+    """Logical values per physical container element."""
+    dt = torch_dtype(value_dtype)
+    return _container_dtype(dt).itemsize // dt.itemsize
+
+
+def _packed_width(dim: int, n_slots: int, value_dtype=torch.float32) -> int:
+    pf = _pack_factor(value_dtype)
+    w = dim * (1 + n_slots)
+    return (w + _LANES * pf - 1) // (_LANES * pf) * (_LANES * pf)
+
+
+def _to_logical_rows(rows_phys: torch.Tensor, value_dtype, n_rows: int,
+                     width: int) -> torch.Tensor:
+    """[..., >=n*ch, 128] physical container -> [..., n, W] logical values
+    (extra physical rows — the trash row block — are sliced off)."""
+    dt = torch_dtype(value_dtype)
+    lead = tuple(rows_phys.shape[:-2])
+    lanes_rows = n_rows * (width // (_LANES * _pack_factor(dt)))
+    rows_phys = rows_phys[..., :lanes_rows, :]
+    if rows_phys.dtype != dt:
+        rows_phys = rows_phys.view(dt)  # little-endian: low half first
+    return rows_phys.reshape(lead + (n_rows, width))
+
+
+def _to_physical_rows(rows_logical: torch.Tensor, container_dtype,
+                      lanes_rows: int, trash_row: bool = False):
+    """[..., n, W] logical -> [..., n*ch (+ch), 128] physical container.
+    ``trash_row=True`` appends the zeroed trash row block."""
+    lead = tuple(rows_logical.shape[:-2])
+    x = rows_logical.contiguous()
+    if x.dtype != container_dtype:
+        x = x.view(container_dtype)
+    phys = x.reshape(lead + (lanes_rows, _LANES))
+    if trash_row:
+        ch = lanes_rows // max(rows_logical.shape[-2], 1)
+        phys = torch.cat([phys, phys.new_zeros(lead + (ch, _LANES))], dim=-2)
+    return phys
+
+
+def create(spec: TableSpec, device=None) -> TableState:
+    """Fresh empty table on ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    e_lo, e_hi = _split_int(spec.empty_key)
+    vdt = spec.value_dtype
+    ch = _packed_width(spec.dim, 0, vdt) // (_LANES * _pack_factor(vdt))
+    return TableState(
+        key_lo=torch.full((spec.capacity,), e_lo, dtype=torch.int32,
+                          device=dev),
+        key_hi=torch.full((spec.capacity,), e_hi, dtype=torch.int32,
+                          device=dev),
+        rows=torch.zeros(((spec.capacity + 1) * ch, _LANES),  # +1: trash
+                         dtype=_container_dtype(vdt), device=dev),
+        scores=torch.zeros((spec.capacity,), dtype=spec.score_dtype,
+                           device=dev),
+        dim=spec.dim,
+        key_dtype_name=dtype_name(spec.key_dtype),
+        value_dtype_name=dtype_name(vdt),
+    )
+
+
+# ---------------------------------------------------------------------------
+# probing
+# ---------------------------------------------------------------------------
+
+
+def take_elem(vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``vec[idx]`` (the JAX package's row-gather reformulation is a TPU
+    layout trick; here it is plain indexing). ``idx`` must be in range."""
+    return vec[idx.long()]
+
+
+def _argmax_first(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 when none), int32."""
+    return mask.to(torch.uint8).argmax(dim=-1).to(torch.int32)
+
+
+def _set_drop(vec: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor):
+    """``vec.at[idx].set(vals, mode="drop")`` for ``idx`` in ``[0, C]``
+    (``C`` = the drop sentinel), out of place: writes into a ``[C+1]``
+    copy and slices. Indices below ``C`` must be unique."""
+    buf = torch.cat([vec, vec.new_zeros(1)])
+    buf[idx.long()] = vals.to(vec.dtype)
+    return buf[:-1]
+
+
+def _bucket_of(spec: TableSpec, keys: torch.Tensor):
+    """Return ([N] bucket id, [N] bucket base slot), int32."""
+    b = hashing.bucket_of(keys, spec.num_buckets)
+    return b, b * spec.bucket_size
+
+
+def _bucket_gather(spec: TableSpec, flat: torch.Tensor,
+                   bucket: torch.Tensor) -> torch.Tensor:
+    """Each key's whole bucket from a flat [C]-shaped column: [N, B]."""
+    return flat.view(spec.num_buckets, spec.bucket_size)[bucket.long()]
+
+
+def find(spec: TableSpec, state: TableState, keys: torch.Tensor):
+    """Vectorized probe. Returns ``(slot [N] int32, found [N] bool)``;
+    ``slot`` is 0 where not found. EMPTY-sentinel keys are never found."""
+    bucket, base = _bucket_of(spec, keys)
+    lo, hi = split_key(keys)
+    cl = _bucket_gather(spec, state.key_lo, bucket)  # [N, B] int32
+    chi = _bucket_gather(spec, state.key_hi, bucket)
+    match = (cl == lo[:, None]) & (chi == hi[:, None])
+    found = match.any(dim=-1) & (keys != spec.empty_key)
+    slot = base + _argmax_first(match)
+    return torch.where(found, slot, 0), found
+
+
+def gather_packed(state: TableState, slot: torch.Tensor,
+                  found: torch.Tensor) -> torch.Tensor:
+    """Packed logical [N, W] rows at ``slot`` through the row-gather
+    kernel. Rows where ``found`` is False carry the trash row (unmasked)."""
+    idx = torch.where(found, slot, state.capacity)  # sentinel -> trash row
+    n = idx.shape[0]
+    phys = cuda_ops.gather_rows_2d(state.rows, state.chunks, idx,
+                                   cap=state.capacity, masked=False)
+    return _to_logical_rows(phys.reshape(n * state.chunks, _LANES),
+                            state.value_dtype, n, state.width)
+
+
+def _scatter_rows_state(state: TableState, idx: torch.Tensor,
+                        packed_rows: torch.Tensor) -> torch.Tensor:
+    """Scatter logical [N, W] rows through the row-scatter kernel.
+    Writes ``state.rows`` IN PLACE and returns it."""
+    n = packed_rows.shape[0]
+    phys = _to_physical_rows(packed_rows.to(state.value_dtype),
+                             state.rows.dtype, n * state.chunks)
+    return cuda_ops.scatter_rows_set_2d(state.rows, state.chunks, idx, phys,
+                                        cap=state.capacity)
+
+
+def gather_values(state: TableState, slot: torch.Tensor,
+                  found: torch.Tensor) -> torch.Tensor:
+    """[N, dim] VALUE rows at ``slot``: the row-gather kernel copies only
+    each row's leading value chunks (``vc`` of the row's ``ch``). Rows
+    where ``found`` is False carry unspecified data (the trash row);
+    callers mask by ``found``."""
+    d = state.dim
+    pf = _pack_factor(state.value_dtype)
+    ch = state.chunks
+    dc = d // pf if d % pf == 0 else 0  # container words per value row
+    vc = (dc + _LANES - 1) // _LANES  # value chunks
+    if dc == 0 or ch % vc:
+        return gather_packed(state, slot, found)[:, :d]
+    idx = torch.where(found, slot, state.capacity)
+    out = cuda_ops.gather_rows_2d(state.rows, ch, idx, masked=False, vc=vc)
+    col = out[:, :dc]
+    if pf == 1:
+        return col
+    return col.contiguous().view(state.value_dtype)[:, :d]
+
+
+def gather(spec: TableSpec, state: TableState, slot: torch.Tensor,
+           found: torch.Tensor, default_values) -> torch.Tensor:
+    """Value rows at ``slot`` where found else ``default_values``
+    ([N, D] or [D])."""
+    rows = gather_values(state, slot, found)
+    default = torch.as_tensor(default_values, dtype=spec.value_dtype,
+                              device=rows.device)
+    if default.dim() < 2:
+        default = default.expand(rows.shape)
+    return torch.where(found[:, None], rows, default)
+
+
+def lookup(spec: TableSpec, state: TableState, keys: torch.Tensor,
+           default_values=0.0):
+    """Pure lookup: values for found keys, defaults for missing (the
+    inference path). Returns ``(values [N, dim], found [N])``."""
+    slot, found = find(spec, state, keys)
+    if not isinstance(default_values, torch.Tensor):
+        default_values = torch.full((spec.dim,), default_values,
+                                    dtype=spec.value_dtype,
+                                    device=state.device)
+    return gather(spec, state, slot, found, default_values), found
+
+
+# ---------------------------------------------------------------------------
+# insertion
+# ---------------------------------------------------------------------------
+
+
+def _kth_lowest_slot(sc_masked: torch.Tensor, k: torch.Tensor):
+    """Index (along the last axis) of the k-th lowest entry of
+    ``sc_masked`` [N, B], ties broken by position: slot j's rank is the
+    number of slots that beat it, summed over the B competitor columns."""
+    n, bsz = sc_masked.shape
+    lanes = torch.arange(bsz, device=sc_masked.device)[None, :]
+    cnt = torch.zeros((n, bsz), dtype=torch.int32, device=sc_masked.device)
+    for col_i in range(bsz):
+        col = sc_masked[:, col_i:col_i + 1]
+        beats = (col < sc_masked) | ((col == sc_masked) & (col_i < lanes))
+        cnt += beats.to(torch.int32)
+    return _argmax_first(cnt == k[:, None])
+
+
+def _segment_rank(sort_key: torch.Tensor):
+    """Rank of each element within its equal-valued group, in batch order
+    (a STABLE sort, as ``jax.lax.sort``)."""
+    n = sort_key.shape[0]
+    sorted_k, order = torch.sort(sort_key, stable=True)
+    idx = torch.arange(n, device=sort_key.device)
+    is_start = torch.ones(n, dtype=torch.bool, device=sort_key.device)
+    is_start[1:] = sorted_k[1:] != sorted_k[:-1]
+    start_idx = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    rank = torch.empty(n, dtype=torch.int32, device=sort_key.device)
+    rank[order] = (idx - start_idx).to(torch.int32)
+    return rank
+
+
+def _plan_writes(spec: TableSpec, state: TableState, keys: torch.Tensor):
+    """Assign a distinct slot to every valid key: its match, a free slot,
+    or a min-score eviction victim in its bucket.
+
+    Returns (slot [N], found [N], inserted [N], dropped [N]). ``dropped``
+    marks keys that could not be placed (more than ``bucket_size`` new keys
+    of this batch in one bucket). Precondition: ``keys`` deduplicated
+    (EMPTY padding allowed)."""
+    n = keys.shape[0]
+    cap = state.capacity
+    valid = keys != spec.empty_key
+    bucket_id, base = _bucket_of(spec, keys)
+    lo, hi = split_key(keys)
+    e_lo, e_hi = _split_int(spec.empty_key)
+    cl = _bucket_gather(spec, state.key_lo, bucket_id)  # [N, B] int32
+    chi = _bucket_gather(spec, state.key_hi, bucket_id)
+    match = (cl == lo[:, None]) & (chi == hi[:, None])
+    found = match.any(dim=-1) & valid
+    slot_found = base + _argmax_first(match)
+
+    # slots matched by this batch are not free and not evictable
+    claimed = torch.zeros(cap + 1, dtype=torch.bool, device=keys.device)
+    claimed[torch.where(found, slot_found, cap).long()] = True
+    claimed_b = _bucket_gather(spec, claimed[:cap], bucket_id)  # [N, B]
+
+    empty_b = (cl == e_lo) & (chi == e_hi)
+    free_b = empty_b & ~claimed_b
+    num_free = free_b.sum(dim=-1, dtype=torch.int32)
+
+    need = valid & ~found
+    # keys placed elsewhere share one inactive group (still ranked, unused)
+    rank = _segment_rank(torch.where(need, bucket_id, spec.num_buckets))
+
+    # k-th free position via cumulative count
+    cf = torch.cumsum(free_b.to(torch.int32), dim=-1, dtype=torch.int32)
+    kth_free = _argmax_first(cf == (rank + 1)[:, None])
+
+    # eviction: k-th lowest score among occupied, unclaimed slots, ranked
+    # only when some bucket overflows (a host sync, fine on this path)
+    evictable_b = ~empty_b & ~claimed_b
+    num_evictable = evictable_b.sum(dim=-1, dtype=torch.int32)
+    use_free = rank < num_free
+    if bool((need & ~use_free).any()):
+        sc = _bucket_gather(spec, state.scores, bucket_id)
+        sc = torch.where(evictable_b, sc, _score_max(sc.dtype))
+        evict_rank = (rank - num_free).clamp(0, spec.bucket_size - 1)
+        kth_evict = _kth_lowest_slot(sc, evict_rank)
+    else:
+        kth_evict = torch.zeros(n, dtype=torch.int32, device=keys.device)
+    dropped = need & (rank >= num_free + num_evictable)
+    inserted = need & ~dropped
+    slot_new = base + torch.where(use_free, kth_free, kth_evict)
+    return torch.where(found, slot_found, slot_new), found, inserted, dropped
+
+
+def _pack_rows(state: TableState, n: int, values: Optional[torch.Tensor],
+               old_packed: torch.Tensor,
+               inserted: torch.Tensor) -> torch.Tensor:
+    """The new packed [N, W] rows of a commit: ``values`` in the value
+    columns; slot columns kept where found and reset to their fresh fill
+    where inserted (eviction victims carry stale slot state)."""
+    d = state.dim
+    dt = state.value_dtype
+    out = old_packed
+    if state.slot_names:
+        fresh = torch.zeros((n, state.width), dtype=dt, device=out.device)
+        for i, nm in enumerate(state.slot_names):
+            fresh[:, d * (1 + i): d * (2 + i)] = state.slot_init(nm)
+        out = torch.where(inserted[:, None], fresh, out)
+    if values is not None:
+        out[:, :d] = values.to(dt)  # ``out`` is this commit's own buffer
+    return out
+
+
+def commit(spec: TableSpec, state: TableState, keys: torch.Tensor,
+           values: Optional[torch.Tensor] = None,
+           scores: Optional[torch.Tensor] = None, *,
+           score_mode: str = "assign") -> TableState:
+    """One planned, conflict-free batch write: keys + packed rows (+scores)
+    in ONE row-scatter (plus the [C]-column key/score writes).
+    ``score_mode``: ``"assign"`` (LRU-style) or ``"add"`` (LFU-style).
+    Precondition: keys deduplicated; EMPTY-sentinel entries are ignored."""
+    plan = _plan_writes(spec, state, keys)
+    return commit_planned(spec, state, keys, plan, values=values,
+                          scores=scores, score_mode=score_mode)
+
+
+def commit_planned(spec: TableSpec, state: TableState, keys: torch.Tensor,
+                   plan, values: Optional[torch.Tensor] = None,
+                   scores: Optional[torch.Tensor] = None, *,
+                   score_mode: str = "assign") -> TableState:
+    """Commit against a precomputed ``_plan_writes`` plan. The rows are
+    written in place (see the module docstring)."""
+    n = keys.shape[0]
+    slot, found, inserted, _ = plan
+    write = found | inserted
+    idx = torch.where(write, slot, state.capacity)  # sentinel => dropped
+    if values is not None and not state.slot_names:
+        # the write covers every column: the old rows are never read
+        old_packed = torch.zeros((n, state.width), dtype=state.value_dtype,
+                                 device=state.device)
+    else:
+        old_packed = gather_packed(state, slot, write)
+    new_packed = _pack_rows(state, n, values, old_packed, inserted)
+    new_rows = _scatter_rows_state(state, idx, new_packed)
+
+    k_lo, k_hi = split_key(keys)
+    if scores is None:
+        scores = torch.ones(n, dtype=spec.score_dtype, device=state.device)
+    new_sc = scores.to(spec.score_dtype)
+    if score_mode == "add":
+        new_sc = new_sc + torch.where(found, take_elem(state.scores, slot), 0)
+    return state.replace(
+        key_lo=_set_drop(state.key_lo, idx, k_lo),
+        key_hi=_set_drop(state.key_hi, idx, k_hi),
+        rows=new_rows,
+        scores=_set_drop(state.scores, idx, new_sc),
+    )
+
+
+def upsert(spec: TableSpec, state: TableState, keys: torch.Tensor,
+           values: torch.Tensor, scores: Optional[torch.Tensor] = None, *,
+           score_mode: str = "assign") -> TableState:
+    """Insert-or-assign a batch of (deduplicated) keys, evicting the
+    lowest-score slot of a full bucket."""
+    return commit(spec, state, keys, values=values, scores=scores,
+                  score_mode=score_mode)
+
+
+# ---------------------------------------------------------------------------
+# export / stats
+# ---------------------------------------------------------------------------
+
+
+def occupancy_mask(spec: TableSpec, state: TableState) -> torch.Tensor:
+    e_lo, e_hi = _split_int(spec.empty_key)
+    return ~((state.key_lo == e_lo) & (state.key_hi == e_hi))
+
+
+def size(spec: TableSpec, state: TableState) -> torch.Tensor:
+    """Live-key count (0-d int64 tensor)."""
+    return occupancy_mask(spec, state).sum()
+
+
+def export(spec: TableSpec, state: TableState):
+    """Full dump ``(keys [C], values [C, D], mask [C])``; compaction is
+    the caller's."""
+    return state.keys, state.values, occupancy_mask(spec, state)
+
+
+# ---------------------------------------------------------------------------
+# batch utilities
+# ---------------------------------------------------------------------------
+
+
+def dedup_last(keys: torch.Tensor, arrays=(), size: Optional[int] = None):
+    """Deterministic last-occurrence-wins dedup for batch writes. Returns
+    ``(unique_keys [size], picked)`` where ``picked[i]`` is ``arrays[i]``
+    at each unique key's LAST occurrence in ``keys``."""
+    flat = keys.reshape(-1)
+    n = flat.shape[0]
+    uniq, inverse = unique_static(flat, size=size)
+    # jax.ops.segment_max: groups with no members read int32 min, then
+    # clip; their uniq entry is the EMPTY fill, ignored at commit
+    last = torch.full((uniq.shape[0],), _INT32_MIN, dtype=torch.int32,
+                      device=flat.device).scatter_reduce(
+        0, inverse.long(),
+        torch.arange(n, dtype=torch.int32, device=flat.device), "amax")
+    safe = last.clamp(0, n - 1).long()
+    picked = tuple(a.reshape((n,) + tuple(a.shape[keys.dim():]))[safe]
+                   for a in arrays)
+    return uniq, picked
+
+
+def unique_static(keys: torch.Tensor, size: Optional[int] = None, fill=None):
+    """Static-shape dedup: ``(unique [size] padded with EMPTY, inverse
+    [N])``, unique keys in ascending order. With ``size`` below the number
+    of distinct keys the last unique slot holds an unspecified one of the
+    surplus keys, as in the JAX version."""
+    flat = keys.reshape(-1)
+    n = flat.shape[0]
+    size = size or n
+    if fill is None:
+        fill = hashing.empty_key_for(keys.dtype)
+    sk, order = torch.sort(flat, stable=True)
+    is_start = torch.ones(n, dtype=torch.bool, device=flat.device)
+    is_start[1:] = sk[1:] != sk[:-1]
+    gid = torch.cumsum(is_start.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    gid_c = gid.clamp(max=size - 1).long()
+    sk_lo, sk_hi = split_key(sk)
+    f_lo, f_hi = _split_int(int(fill))
+    # every write to one index carries the same key (one group)
+    u_lo = torch.full((size,), f_lo, dtype=torch.int32, device=flat.device)
+    u_hi = torch.full((size,), f_hi, dtype=torch.int32, device=flat.device)
+    u_lo[gid_c] = sk_lo
+    u_hi[gid_c] = sk_hi
+    uniq = join_key(u_lo, u_hi).to(flat.dtype)
+    inverse = torch.empty(n, dtype=torch.int32, device=flat.device)
+    inverse[order] = gid_c.to(torch.int32)
+    return uniq, inverse.reshape(keys.shape)
