@@ -1,50 +1,74 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (recommenders_addons_tpu_torch) on
 one NVIDIA card: builds the hand-written CUDA kernels from csrc/, holds
-each against its plain PyTorch version at the serving path's shapes,
-then serves a DLRM-width dynamic-embedding table through the port's
-EmbeddingServer and checks every answer against an independent numpy
-reference.
+each against its plain PyTorch version at its main paths' shapes, serves
+a DLRM-width dynamic-embedding table through the port's EmbeddingServer,
+trains the full-width DLRM through train_loop, and runs the table-step
+benchmark's configuration through hit, duplicate, fresh-key and eviction
+batches, checking each result against a reference.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failure exits non-zero):
 
-1. Kernels against their plain versions, bit-exact on int32 views:
-   row_gather on a 4Mi-row table (ch = 1) at N = 65536, on a ragged N
-   with sentinel and negative indices (masked and flat), and on a ch = 2
-   table with the vc = 1 value stride; row_scatter of 1Mi rows with
-   unique indices plus sentinels. Each is timed (CUDA events) beside its
-   plain version, one PyTorch library call computing the same function
-   (index_select / index_copy_), and its bound: the bytes it must move
-   over the card's memory rate.
+1. Kernels against their plain versions. row_gather on a 4Mi-row table
+   (ch = 1) at N = 65536, on a ragged N with sentinel and negative
+   indices (masked and flat), and on a ch = 2 table with the vc = 1 value
+   stride; row_scatter of 1Mi rows with unique indices plus sentinels:
+   bit-exact on int32 views. fused_update_scatter for all seven named
+   optimizers on f32 tables and for Adam and Adagrad on bf16 tables (with
+   a foreign slot column passed through, sentinel, negative and
+   past-the-end indices), then at its two main-path shapes: DLRM's
+   (Adagrad, 4Mi rows, ch = 1, N = 106,496) and the table step's (Adam,
+   2Mi rows, ch = 2, N = 65,536). Rows it does not write must be
+   bit-exact, updated f32 words within 4 ulps and bf16 halves within 1.
+   Each kernel is timed (CUDA events) beside its plain version, one
+   PyTorch library call computing the same function where there is one,
+   and its bound: the bytes it must move over the card's memory rate.
 2. The serving slice: a Variable(dim=64, init_capacity=1<<22) filled with
    26 features x 80,658 feature-tagged ids (the DLRM shared table's
    layout, models/dlrm.py), export_compressed to f16, serve_directory
    (load_compressed into a 4Mi-slot table), 8 EmbeddingClient requests
    of 256 examples x 26 features with zipf(1.2) ids, 4 of them
-   concurrent, each held exactly against the numpy reference. Both
-   kernels' launch counters must rise in this phase. Then
+   concurrent, each held exactly against the numpy reference. Then
    FrozenTable.lookup is timed at N = 65536 (CUDA events, then a
    torch.profiler trace for the device's busy share and top kernels), and
-   the requests' latency beside the server's table layer alone on the
-   same ids.
+   the requests' latency beside the server's table layer alone.
+3. Training: a narrow DLRM trains 3 steps on the card and 3 on the CPU
+   (the plain versions) from the same weights and batches; losses, key
+   planes, scores and rows must agree. Then the full-width DLRM
+   (DLRMConfig: dim 64, 26 features, towers 13-512-256-64 and
+   415-512-256-1, a 4Mi-slot table with its Adagrad accumulator) trains
+   20 steps of batch 4096 through train_loop; the loss must be finite and
+   lower at step 20 than at step 1. Timed per step, with a profiler trace
+   of 3 more steps and a count of the host syncs of one step.
+4. The table step (bench.py's configuration: dim 64, 2Mi slots, Adam,
+   normal(0.05)): embedding_lookup + apply_gradients on batches of 65,536
+   ids: fresh, all-hit, zipf duplicates, fresh again, and, after filling
+   the table to capacity, fresh ids that must evict.
 
-Output: the card's name and power limit on a line of its own, a
-``{"serving": ...}`` line, a ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. Without CUDA, or without the
+Each main path (serving, DLRM training, table step) is driven with the
+kernels' launch counts set to 0 just before it and read just after; a
+kernel of the path that was not launched fails the run.
+
+Output: the card's name and power limit on a line of its own,
+``{"serving": ...}``, ``{"training": ...}``, ``{"kernels": [...]}`` and
+last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -58,10 +82,18 @@ VOCAB = 100_000  # synthetic_criteo_batch vocab_per_feature
 N_GATHER = 65536
 N_SCATTER = 1 << 20
 LANES = 128
+DLRM_BATCH = 4096  # bench.py's DLRM batch: 4096 x 26 = 106,496 keys
+DLRM_STEPS = 20
+TABLE_CAP = 1 << 21  # bench.py CAP
+TABLE_N = 65536  # bench.py's larger batch
 
 # device memory rate by card name (NVIDIA data sheets), for the bounds
 _MEM_BYTES_PER_S = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
                     ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
+_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# float32 operations per updated column of Adagrad (ops/optimizer.py:
+# g*g, +, sqrt, +, lr*g, /, -), for the fused kernel's operations bound
+_ADAGRAD_FLOPS = 7
 
 
 def _card_line() -> str:
@@ -95,10 +127,10 @@ def _time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(torch, fn, iters: int = 10):
+def _device_profile(torch, fn, iters: int = 10, top_n: int = 5):
     """Device busy share of ``iters`` back-to-back calls of ``fn`` (kernel
     time summed from a torch.profiler trace over the host wall time) and
-    the five kernels that took the most device time, in ms per call.
+    the ``top_n`` kernels that took the most device time, in ms per call.
     Returns (None, []) when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -119,7 +151,7 @@ def _device_profile(torch, fn, iters: int = 10):
     busy_us = sum(us for _, us in kernels)
     if busy_us == 0:
         return None, []
-    top = sorted(kernels, key=lambda kv: -kv[1])[:5]
+    top = sorted(kernels, key=lambda kv: -kv[1])[:top_n]
     return busy_us / wall_us, [[k[:80], us / iters / 1e3] for k, us in top]
 
 
@@ -330,7 +362,7 @@ def serving_phase(torch, cuda_ops, dev, gen, seed):
             if not 0 < misses < n_ids:
                 raise AssertionError(f"{misses} misses of {n_ids} ids: the "
                                      f"requests should hit and miss")
-            if not all(launches.values()):
+            if not (launches["row_gather"] and launches["row_scatter"]):
                 raise AssertionError(
                     f"a kernel was not launched on the serving path: "
                     f"{launches}")
@@ -372,6 +404,402 @@ def serving_phase(torch, cuda_ops, dev, gen, seed):
     }
 
 
+def _ulps(torch, a, b, bits: int) -> int:
+    """Max distance in ulps between two float tensors (f32 or bf16 bit
+    patterns ordered across the sign)."""
+    it, mag = ((torch.int32, 0x7FFFFFFF) if bits == 32
+               else (torch.int16, 0x7FFF))
+
+    def ordered(t):
+        i = t.contiguous().view(it).to(torch.int64)
+        return torch.where(i < 0, -(i & mag), i)
+
+    if a.numel() == 0:
+        return 0
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _fused_inputs(torch, dev, gen, opt_slots, pf, cap, n, dim, foreign):
+    """Table, packed rows, grads and indices for one fused-kernel check:
+    values uniform in [0.05, 1) (positive accumulators), optionally a
+    foreign slot column the kernel must pass through; indices unique
+    slots with every 97th the sentinel, and some negative or past the
+    end."""
+    names = tuple(sorted(set(opt_slots) | ({"zz"} if foreign else set())))
+    vdt = torch.float32 if pf == 1 else torch.bfloat16
+    w = -(-dim * (1 + len(names)) // (LANES * pf)) * LANES * pf
+    ch = w // (LANES * pf)
+    wc = ch * LANES
+
+    def rows(k):
+        x = torch.rand((k, w), device=dev, generator=gen) * 0.95 + 0.05
+        return x.to(vdt).view(torch.float32).reshape(k, wc)
+
+    table = rows(cap + 1).reshape((cap + 1) * ch, LANES)
+    packed = rows(n)
+    grads = torch.randn((n, dim), device=dev, generator=gen)
+    idx = torch.randperm(cap, device=dev, generator=gen)[:n].to(torch.int32)
+    idx[::97] = cap
+    idx[5::211] = -1
+    idx[7::223] = cap + 5
+    return names, ch, table, packed, grads, idx
+
+
+def _fused_check(torch, cuda_ops, opt, pf, cap, n, dim, gen, dev,
+                 foreign=True, step=4.0, keep=False):
+    """fused_update_scatter against its plain version; returns (ulps,
+    max |difference| of written words as floats, inputs if ``keep``)."""
+    rule = opt.fused_rule()
+    names, ch, table, packed, grads, idx = _fused_inputs(
+        torch, dev, gen, rule.slots, pf, cap, n, dim, foreign)
+    a = table.clone()
+    cuda_ops.fused_update_scatter(a, ch, idx, packed, grads, rule, dim=dim,
+                                  slot_names=names, cap=cap, step=step,
+                                  pf=pf)
+    cuda_ops.fused_update_scatter_plain(table, ch, idx, packed, grads, rule,
+                                        dim=dim, slot_names=names, cap=cap,
+                                        step=step, pf=pf)
+    torch.cuda.synchronize()
+    wc = ch * LANES
+    ra, rb = a[:cap * ch].view(cap, wc), table[:cap * ch].view(cap, wc)
+    written = torch.zeros(cap, dtype=torch.bool, device=dev)
+    written[idx[(idx >= 0) & (idx < cap)].long()] = True
+    if not torch.equal(ra[~written].view(torch.int32),
+                       rb[~written].view(torch.int32)):
+        raise AssertionError(f"{rule.kind} pf={pf}: rows it must not write "
+                             f"differ")
+    wa, wb = ra[written], rb[written]
+    if pf == 1:
+        ulps = _ulps(torch, wa, wb, 32)
+        err = float((wa - wb).abs().max())
+    else:
+        ha, hb = wa.view(torch.bfloat16), wb.view(torch.bfloat16)
+        ulps = _ulps(torch, ha, hb, 16)
+        err = float((ha.float() - hb.float()).abs().max())
+    if ulps > (4 if pf == 1 else 1):
+        raise AssertionError(f"{rule.kind} pf={pf}: {ulps} ulps off its "
+                             f"plain version")
+    kept = (table, packed, grads, idx, names, ch) if keep else None
+    del a
+    return ulps, err, kept
+
+
+def fused_kernel_phase(torch, cuda_ops, dev, gen, rate):
+    """fused_update_scatter against its plain version: every named
+    optimizer (f32), Adam and Adagrad (bf16), then the two main-path
+    shapes, which are also timed."""
+    from recommenders_addons_tpu_torch.ops import optimizer as opt_lib
+
+    opts = {"sgd": opt_lib.SGD(0.05), "momentum": opt_lib.Momentum(0.05),
+            "adagrad": opt_lib.Adagrad(0.05), "adam": opt_lib.Adam(0.05),
+            "adamw": opt_lib.AdamW(0.05), "rmsprop": opt_lib.RMSprop(0.05),
+            "ftrl": opt_lib.FTRL(0.05, l1_regularization_strength=0.01,
+                                 l2_regularization_strength=0.01)}
+    checks = {}
+    for name, opt in opts.items():
+        checks[f"{name}_f32"] = _fused_check(
+            torch, cuda_ops, opt, 1, 1 << 20, N_GATHER, DIM, gen, dev)[:2]
+    for name in ("adam", "adagrad"):
+        checks[f"{name}_bf16"] = _fused_check(
+            torch, cuda_ops, opts[name], 2, 1 << 20, N_GATHER, DIM, gen,
+            dev)[:2]
+    torch.cuda.empty_cache()
+
+    # the table step's shape: Adam, 2Mi rows, ch = 2, N = 65,536
+    adam = opt_lib.Adam(0.001)
+    ulps, err, (table, packed, grads, idx, names, ch) = _fused_check(
+        torch, cuda_ops, adam, 1, TABLE_CAP, TABLE_N, DIM, gen, dev,
+        foreign=False, keep=True)
+    checks["adam_table_step"] = (ulps, err)
+    rule = adam.fused_rule()
+    ts_ms = _time_ms(torch, lambda: cuda_ops.fused_update_scatter(
+        table, ch, idx, packed, grads, rule, dim=DIM, slot_names=names,
+        cap=TABLE_CAP, step=4.0), 50)
+    ts_bytes = TABLE_N * (2 * ch * LANES * 4 + DIM * 4 + 4)
+    del table, packed, grads, idx
+    torch.cuda.empty_cache()
+
+    # DLRM's shape: Adagrad, 4Mi rows, ch = 1, N = 4096 x 26
+    n = DLRM_BATCH * FEATURES
+    adagrad = opt_lib.Adagrad(0.01)
+    ulps, err, (table, packed, grads, idx, names, ch) = _fused_check(
+        torch, cuda_ops, adagrad, 1, C, n, DIM, gen, dev, foreign=False,
+        keep=True)
+    checks["adagrad_dlrm"] = (ulps, err)
+    rule = adagrad.fused_rule()
+    ms = _time_ms(torch, lambda: cuda_ops.fused_update_scatter(
+        table, ch, idx, packed, grads, rule, dim=DIM, slot_names=names,
+        cap=C, step=4.0), 50)
+    plain_ms = _time_ms(torch, lambda: cuda_ops.fused_update_scatter_plain(
+        table, ch, idx, packed, grads, rule, dim=DIM, slot_names=names,
+        cap=C, step=4.0), 10)
+    w = ch * LANES
+    n_bytes = n * (2 * w * 4 + DIM * 4 + 4)
+    n_ops = n * DIM * _ADAGRAD_FLOPS
+    del table, packed, grads, idx
+    torch.cuda.empty_cache()
+    bound_s = max(n_bytes / rate, n_ops / _F32_FLOPS)
+    return {
+        "name": "fused_update_scatter", "route": "cuda",
+        "source": "recommenders_addons_tpu_torch/csrc/"
+                  "fused_update_scatter.cu",
+        "replaces": "recommenders_addons_tpu/ops/pallas_ops.py:322",
+        "replaces_fn": "fused_update_scatter_refs (call :426), tile math "
+                       "optimizer._fused_rows_pf1/_pf2",
+        "max_abs_err": max(e for _, e in checks.values()),
+        "max_ulps": {k: u for k, (u, _) in checks.items()},
+        "match": True,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "library_ms": None,
+        "library_call": "none (no single PyTorch call fuses a row-wise "
+                        "optimizer with an indexed store)",
+        "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes" if n_bytes / rate >= n_ops / _F32_FLOPS
+        else "operations",
+        "bytes": n_bytes, "ops": n_ops,
+        "shape": f"Adagrad C={C} ch=1 W={w} N={n} D={DIM}",
+        "table_step_shape": f"Adam C={TABLE_CAP} ch=2 N={TABLE_N} D={DIM}",
+        "table_step_ms": ts_ms,
+        "table_step_bound_ms": ts_bytes / rate * 1e3,
+    }
+
+
+def _count_syncs(torch, fn):
+    """``fn()``'s result and how many synchronizing CUDA operations it ran
+    (torch.cuda's sync debug mode warns once per such operation)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = sum("synchroniz" in str(w.message) for w in caught)
+    return out, n
+
+
+def _on(torch, batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _narrow_reference(torch, dev, seed):
+    """A narrow DLRM trains 3 steps on the card and on the CPU (the plain
+    versions) from the same weights and batches: the card's losses, key
+    planes, scores and rows must agree with the CPU's."""
+    from recommenders_addons_tpu_torch import convert
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.models import dlrm
+
+    cfg = dlrm.DLRMConfig(num_sparse=4, dim=8, bottom_sizes=(16, 8),
+                          top_sizes=(16, 1), table_capacity=1024)
+    rng = np.random.default_rng(seed)
+    batches = [dlrm.synthetic_criteo_batch(rng, 64, num_sparse=4,
+                                           vocab_per_feature=400)
+               for _ in range(3)]
+    weights = None
+    runs = {}
+    for where in ("cpu", dev):
+        model = dlrm.DLRM(cfg, device=where)
+        state = model.init(seed)
+        if weights is None:
+            weights = convert.dlrm_dense_to_numpy(state.dense)
+        dense = convert.dlrm_dense_from_numpy(weights, cfg, device=where)
+        state = dlrm.DLRMState(
+            table=de.create_slots(model.var, state.table, model.opt),
+            dense=dense, step=0)
+        step, tx = model.make_train_step()
+        opt_state = tx.init(list(dense.parameters()))
+        losses = []
+        for b in batches:
+            state, opt_state, loss = step(state, opt_state, _on(torch, b,
+                                                                where))
+            losses.append(float(loss))
+        runs[str(where)] = (losses, state.table)
+    (cl, ct), (gl, gt) = runs["cpu"], runs[str(dev)]
+    if not np.allclose(gl, cl, rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"narrow DLRM losses: card {gl}, CPU {cl}")
+    for f in ("key_lo", "key_hi", "scores"):
+        if not torch.equal(getattr(gt, f).cpu(), getattr(ct, f)):
+            raise AssertionError(f"narrow DLRM {f}: card and CPU differ")
+    rows_err = float((gt.rows_logical.cpu() - ct.rows_logical).abs().max())
+    if not torch.allclose(gt.rows_logical.cpu(), ct.rows_logical,
+                          rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"narrow DLRM rows differ by {rows_err}")
+    return {"steps": 3, "batch": 64, "losses_card": gl, "losses_cpu": cl,
+            "rows_max_abs_err": rows_err}
+
+
+def training_phase(torch, cuda_ops, dev, seed):
+    """Phase 3: the DLRM trainer on the card (narrow reference check, then
+    full width through train_loop)."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.models import dlrm
+    from recommenders_addons_tpu_torch.train import LoopConfig, train_loop
+
+    reference = _narrow_reference(torch, dev, seed)
+
+    cfg = dlrm.DLRMConfig()
+    model = dlrm.DLRM(cfg)
+    state = model.init(seed)
+    # slots first, as bench.py's DLRM cell does
+    state = dataclasses.replace(
+        state, table=de.create_slots(model.var, state.table, model.opt))
+    train_step, tx = model.make_train_step()
+    opt_state = [tx.init(list(state.dense.parameters()))]
+    rng = np.random.default_rng(seed)
+    batches = [dlrm.synthetic_criteo_batch(rng, DLRM_BATCH)
+               for _ in range(DLRM_STEPS + 5)]
+
+    def step_fn(st, batch):
+        st, opt_state[0], loss = train_step(st, opt_state[0], batch)
+        return st, {"loss": loss}
+
+    losses, stamps = {}, {}
+
+    def on_log(step, metrics):  # reading the loss waits for the step
+        losses[step] = metrics["loss"]
+        stamps[step] = time.perf_counter()
+
+    # -- the main path: counters from 0, train, read counters ------------
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    state, report = train_loop(step_fn, state, batches[:DLRM_STEPS],
+                               LoopConfig(steps=DLRM_STEPS, log_every=1),
+                               on_log=on_log)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_ops.KERNELS}
+    first, last = losses[1], losses[DLRM_STEPS]
+    if not (math.isfinite(first) and math.isfinite(last) and last < first):
+        raise AssertionError(f"DLRM loss {first} at step 1, {last} at step "
+                             f"{DLRM_STEPS}: not finite and falling")
+    for k in ("row_gather", "fused_update_scatter"):
+        if not launches[k]:
+            raise AssertionError(f"{k} was not launched in training: "
+                                 f"{launches}")
+    size = int(model.var.size(state.table))
+    ms_step = (stamps[DLRM_STEPS] - stamps[1]) / (DLRM_STEPS - 1) * 1e3
+
+    # -- after the checked run: host syncs of one step (its batch already
+    # on the card, as train_loop stages it), a trace of 3 ---------------
+    extra = iter([_on(torch, b, dev) for b in batches[DLRM_STEPS:]])
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], next(extra))
+
+    _, syncs = _count_syncs(torch, one_step)
+    busy, top = _device_profile(torch, one_step, iters=3, top_n=10)
+    return {
+        "config": "DLRMConfig() (dim 64, 26 features, bottom 13-512-256-64, "
+                  "top 415-512-256-1, table 4Mi slots + Adagrad "
+                  "accumulator, f32)",
+        "batch": DLRM_BATCH, "keys_per_step": DLRM_BATCH * FEATURES,
+        "steps": report.steps, "loss_step_1": first,
+        f"loss_step_{DLRM_STEPS}": last,
+        "losses": [losses[i] for i in sorted(losses)],
+        "table_keys_after": size, "train_loop_wall_s": wall_s,
+        "ms_per_step": ms_step,
+        "examples_per_s": DLRM_BATCH / (ms_step / 1e3),
+        "host_syncs_per_step": syncs,
+        "device_busy_share": busy, "top_device_ops_ms": top,
+        "launches": launches, "narrow_reference": reference,
+    }
+
+
+def table_step_phase(torch, cuda_ops, dev, seed):
+    """Phase 4: bench.py's table step (dim 64, 2Mi slots, Adam,
+    normal(0.05)) on hit, duplicate, fresh and evicting batches."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+
+    var = de.Variable(name="bench_table", dim=DIM, init_capacity=TABLE_CAP,
+                      initializer=de.initializers.normal(0.05))
+    opt = de.Adam(0.001)
+    state = de.create_slots(var, var.init(), opt)
+    rng = np.random.default_rng(seed)
+    base_np = np.unique(rng.integers(1, 1 << 62, size=TABLE_N + 4096))
+    base_np = rng.permutation(base_np)[:TABLE_N].astype(np.int64)
+    base = torch.from_numpy(base_np).to(dev)
+    zipf = torch.from_numpy(base_np[(rng.zipf(1.2, size=TABLE_N) - 1)
+                                    % TABLE_N]).to(dev)
+    holder = {"state": state, "step": 0, "ctx": None}
+
+    def step(keys):
+        s = holder["step"]
+        emb, ctx = var.embedding_lookup(holder["state"], keys, step=s + 2)
+        holder["state"] = var.apply_gradients(holder["state"], ctx,
+                                              emb * 0.01, opt, step=s)
+        holder["step"], holder["ctx"] = s + 1, ctx
+        return ctx
+
+    def timed(make_keys, reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            step(make_keys())
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    def fresh():  # bench.py fresh_keys: ids ^ (step + 1)
+        return base ^ (holder["step"] + 1 + (1 << 40))
+
+    # -- the main path: counters from 0 ----------------------------------
+    cuda_ops.reset_launches()
+    out = {"config": "dim 64, capacity 2Mi, Adam(0.001), normal(0.05), "
+                     "LRU stamped at lookup (bench.py)", "batch": TABLE_N}
+    ctx = step(base)  # cold: every id inserted
+    out["insert_inserted"] = int(ctx.inserted.sum())
+    out["hit_ms"] = timed(lambda: base, 10)
+    ctx = holder["ctx"]
+    if not (bool(ctx.found.all()) and ctx.no_dups):
+        raise AssertionError("the hit batch should find every id, once")
+    _, out["hit_host_syncs"] = _count_syncs(torch, lambda: step(base))
+    out["zipf_dup_ms"] = timed(lambda: zipf, 10)
+    ctx = holder["ctx"]
+    out["zipf_distinct"] = int(ctx.found.sum())
+    if ctx.no_dups or not ctx.rows_aligned:
+        raise AssertionError("the zipf batch should hit with duplicates")
+    out["fresh_ms"] = timed(fresh, 5)
+    if int(holder["ctx"].inserted.sum()) == 0:
+        raise AssertionError("fresh ids should be inserted")
+    _, out["fresh_host_syncs"] = _count_syncs(torch, lambda: step(fresh()))
+    # fill to capacity, then fresh ids must evict (_kth_lowest_slot)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for i in range(3):
+        keys = torch.randint(1, 1 << 62, (1 << 20,), device=dev,
+                             generator=g)
+        vals = torch.randn((1 << 20, DIM), device=dev, generator=g) * 0.05
+        holder["state"] = var.upsert(holder["state"], keys, vals,
+                                     step=holder["step"] + 1)
+        holder["step"] += 1
+    out["size_before_evict"] = int(var.size(holder["state"]))
+    before = holder["state"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ctx = step(fresh())
+    torch.cuda.synchronize()
+    out["evict_ms"] = (time.perf_counter() - t) * 1e3
+    ins = ctx.inserted
+    victims = int((before.keys[ctx.slot[ins].long()] != var.empty_key).sum())
+    out.update(evict_inserted=int(ins.sum()), evict_victims=victims,
+               evict_dropped=int(ctx.dropped.sum()))
+    if victims == 0:
+        raise AssertionError("the full table's fresh batch evicted no key")
+    launches = {k.name: k.launches for k in cuda_ops.KERNELS}
+    for k in ("row_gather", "fused_update_scatter"):
+        if not launches[k]:
+            raise AssertionError(f"{k} was not launched in the table step: "
+                                 f"{launches}")
+    rows = holder["state"].rows
+    if not bool(torch.isfinite(rows).all()):
+        raise AssertionError("the table step left non-finite rows")
+    out["launches"] = launches
+    for k in ("hit", "zipf_dup", "fresh"):
+        out[f"{k}_keys_per_s"] = TABLE_N / (out[f"{k}_ms"] / 1e3)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -399,9 +827,17 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     kernels = kernel_phase(torch, cuda_ops, dev, gen, rate)
+    kernels.append(fused_kernel_phase(torch, cuda_ops, dev, gen, rate))
     serving = serving_phase(torch, cuda_ops, dev, gen, args.seed)
+    training = training_phase(torch, cuda_ops, dev, args.seed)
+    torch.cuda.empty_cache()
+    table_step = table_step_phase(torch, cuda_ops, dev, args.seed)
+    paths = {"serving": serving["launches"],
+             "dlrm_training": training["launches"],
+             "table_step": table_step["launches"]}
     for k in kernels:
-        k["launches"] = serving["launches"][k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
         k["card"] = card
     if "jax" in sys.modules or "recommenders_addons_tpu" in sys.modules:
         raise AssertionError("the port run imported JAX or the JAX package")
@@ -409,6 +845,8 @@ def main(argv=None) -> int:
     print(card)
     print(json.dumps({"serving": dict(serving, build_s=build_s,
                                       mem_bytes_per_s=rate, card=card)}))
+    print(json.dumps({"training": dict(training, table_step=table_step,
+                                       card=card)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

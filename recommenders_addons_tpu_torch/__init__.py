@@ -10,9 +10,10 @@ Every entry point takes ``device=`` and defaults to CUDA; without a card it
 raises unless the caller asks for ``device="cpu"``, where each kernel
 wrapper runs its plain PyTorch version.
 
-This slice covers the serving path::
-
-    python -m recommenders_addons_tpu_torch.serving --dir <export_dir>
+Ported: the serving path (``python -m recommenders_addons_tpu_torch.serving
+--dir <export_dir>``) and the training path (``Variable.embedding_lookup``
+-> ``apply_gradients`` with the named row-wise optimizers; the DLRM
+trainer in ``models/dlrm.py`` driven by ``train.train_loop``).
 """
 
 from __future__ import annotations

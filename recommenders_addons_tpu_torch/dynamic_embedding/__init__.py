@@ -1,5 +1,5 @@
-"""Public `dynamic_embedding` API of the port (the serving subset of the
-JAX package's ``dynamic_embedding``).
+"""Public `dynamic_embedding` API of the port (the serving and training
+subset of the JAX package's ``dynamic_embedding``).
 
 Usage::
 
@@ -13,7 +13,22 @@ from recommenders_addons_tpu_torch.ops.hashtable import (  # noqa: F401
 from recommenders_addons_tpu_torch.ops import hashtable as raw_table  # noqa: F401
 from recommenders_addons_tpu_torch.ops.variable import (  # noqa: F401
     EvictStrategy,
+    LookupContext,
     Variable,
 )
+from recommenders_addons_tpu_torch.ops.optimizer import (  # noqa: F401
+    FTRL,
+    SGD,
+    Adagrad,
+    Adam,
+    AdamW,
+    DynamicEmbeddingOptimizer,
+    Momentum,
+    RMSprop,
+    SparseOptimizer,
+    apply_gradients,
+    create_slots,
+)
+from recommenders_addons_tpu_torch.ops import initializers  # noqa: F401
 from recommenders_addons_tpu_torch.ops import serving  # noqa: F401
 from recommenders_addons_tpu_torch.ops.serving import freeze  # noqa: F401

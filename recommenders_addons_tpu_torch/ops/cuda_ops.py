@@ -1,16 +1,22 @@
 """Hand-written CUDA kernels for the dynamic-embedding hot path — the
 port's counterpart of the JAX package's ``ops/pallas_ops.py``.
 
-Two kernels, both CUDA C++ for Hopper (``sm_90a``) under ``csrc/``:
+Three kernels, all CUDA C++ for Hopper (``sm_90a``) under ``csrc/``:
 
 * ``row_gather`` (``csrc/row_gather.cu``) replaces the Pallas
   ``_gather_kernel`` (pallas_ops.py:165) behind :func:`gather_rows_2d`;
 * ``row_scatter`` (``csrc/row_scatter.cu``) replaces the Pallas
   ``_scatter_kernel`` (pallas_ops.py:192) behind
-  :func:`scatter_rows_set_2d`.
+  :func:`scatter_rows_set_2d`;
+* ``fused_update_scatter`` (``csrc/fused_update_scatter.cu``) replaces
+  ``fused_update_scatter_refs`` (pallas_ops.py:322) with the tile math of
+  ``optimizer._fused_rows_pf1``/``_pf2`` behind
+  :func:`fused_update_scatter`: a named optimizer's row update fused into
+  the row scatter.
 
-Both are pure indexed data movement, so both are bound by bytes: the
-sources say what their design does about that. Tables keep the JAX
+All three are indexed data movement (the third with a few flops per
+word), so all are bound by bytes: the sources say what their design does
+about that. Tables keep the JAX
 package's physical layout, a ``[(C+1)*ch, 128]`` container of 32-bit words
 with a trash row block at logical index ``C``; the kernels move the words
 through an int32 view, so f16/bf16 pairs whose bits read as NaNs pass
@@ -26,28 +32,36 @@ package, at first use (or all at once, in parallel, by
 :func:`build_kernels`), into shared libraries with a plain C interface
 that ``ctypes`` loads; the library name carries a hash of its source, so
 an edited source is rebuilt. Each kernel counts its launches
-(``ROW_GATHER.launches``, ``ROW_SCATTER.launches``), so a run can show that
-its path went through the kernels.
+(``ROW_GATHER.launches``, ``ROW_SCATTER.launches``,
+``FUSED_UPDATE_SCATTER.launches``), so a run can show that its path went
+through the kernels. The libraries are built without fused multiply-add
+(``-fmad=false``): the fused apply's products and sums then round as the
+separate operations of its plain version and of XLA do.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Callable, Tuple
 
 import torch
+
+from recommenders_addons_tpu_torch.ops.hashing import _wrap32
 
 _LANES = 128
 _PKG = Path(__file__).resolve().parent.parent
 _BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
+               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_F32 = ctypes.c_float
 _build_lock = threading.Lock()
 
 
@@ -120,7 +134,11 @@ class _Kernel:
 ROW_GATHER = _Kernel("row_gather",
                      [_P, _I64, _I32, _P, _I64, _I32, _I64, _I32, _P, _P])
 ROW_SCATTER = _Kernel("row_scatter", [_P, _I64, _I32, _P, _I64, _P, _P])
-KERNELS = (ROW_GATHER, ROW_SCATTER)
+FUSED_UPDATE_SCATTER = _Kernel(
+    "fused_update_scatter",
+    [_P, _I64, _I32, _P, _I64, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+     _F32] + [_F32] * 8 + [_P])
+KERNELS = (ROW_GATHER, ROW_SCATTER, FUSED_UPDATE_SCATTER)
 
 
 def build_kernels(kernels=KERNELS) -> None:
@@ -345,3 +363,163 @@ def scatter_rows_set(table: torch.Tensor, idx: torch.Tensor,
                         table.new_zeros((ch, _LANES))])
     scatter_rows_set_2d(padded, ch, idx, rows, cap=cap)
     return padded[: cap * ch].reshape(cap, w)
+
+
+# ---------------------------------------------------------------------------
+# fused optimizer update + row scatter (in place)
+# ---------------------------------------------------------------------------
+
+# the kernel's Rule enum (csrc/fused_update_scatter.cu), by optimizer kind
+_RULES = {"sgd": 0, "momentum": 1, "adagrad": 2, "adam": 3, "adamw": 4,
+          "rmsprop": 5, "ftrl": 6}
+_M32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FusedRule:
+    """The row update :func:`fused_update_scatter` applies.
+
+    ``kind`` names the optimizer (a key of the kernel's rule table),
+    ``hparams`` are its hyper-parameters in the kernel's order (see
+    ``update`` in the source), ``slots`` its slot names in its own order
+    (at most two), and ``update(rows, grads, slots, step)`` is the
+    optimizer's own update in torch ops, which the plain version runs on
+    the same tile."""
+
+    kind: str
+    hparams: Tuple[float, ...]
+    slots: Tuple[str, ...]
+    update: Callable
+
+
+def _fused_args(table2d, ch, idx, packed, grads, rule, dim, slot_names, cap,
+                pf):
+    if table2d.dim() != 2 or table2d.shape[1] != _LANES:
+        raise ValueError(f"table must be [rows, {_LANES}], got "
+                         f"{tuple(table2d.shape)}")
+    if rule.kind not in _RULES or len(rule.slots) > 2 or len(rule.hparams) > 8:
+        raise ValueError(f"no fused kernel rule for {rule.kind!r}")
+    if not set(rule.slots) <= set(slot_names):
+        raise ValueError(f"table slots {slot_names} lack {rule.slots}")
+    if pf not in (1, 2) or dim % pf or dim * (1 + len(slot_names)) > (
+            ch * _LANES * pf):
+        raise ValueError(f"dim {dim} with {len(slot_names)} slots does not "
+                         f"fit a pf={pf}, ch={ch} row")
+    if table2d.shape[0] // ch <= cap:
+        raise ValueError("the table needs its trash row")
+    t32 = _words(table2d, "table")
+    idx = _index(idx, t32.device)
+    n = idx.shape[0]
+    pk = _words(packed.reshape(n, ch * _LANES).contiguous(), "packed")
+    if grads.dtype != torch.float32 or tuple(grads.shape) != (n, dim):
+        raise ValueError(f"grads must be [{n}, {dim}] float32, got "
+                         f"{tuple(grads.shape)} {grads.dtype}")
+    for t in (pk, grads):
+        if t.device != t32.device:
+            raise ValueError(f"operand on {t.device}, table on {t32.device}")
+    return t32, idx, pk.view(torch.float32), grads.contiguous()
+
+
+def _planes(words: torch.Tensor):
+    """bf16 pairs in 32-bit words -> (even, odd) f32 planes, exactly."""
+    bits = words.view(torch.int32).to(torch.int64) & _M32
+    even = _wrap32((bits << 16) & _M32).view(torch.float32)
+    odd = _wrap32(bits & 0xFFFF0000).view(torch.float32)
+    return even, odd
+
+
+def _repack(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """(even, odd) f32 planes -> bf16 pairs in f32 words, each half
+    rounded to nearest even."""
+    def rne(x):
+        b = x.contiguous().view(torch.int32).to(torch.int64) & _M32
+        return (b + 0x7FFF + ((b >> 16) & 1)) & _M32
+
+    word = (rne(odd) & 0xFFFF0000) | (rne(even) >> 16)
+    return _wrap32(word).view(torch.float32)
+
+
+def fused_update_tile(packed, grads, rule, dim, slot_names, step, pf):
+    """The plain version's tile math: ``[N, ch*128]`` packed words and
+    ``[N, dim]`` f32 grads -> the new ``[N, ch*128]`` rows (value, every
+    slot column, zero padding), as ``optimizer._fused_rows_pf1``/``_pf2``
+    compute them."""
+    n, wc = packed.shape
+    names = tuple(slot_names)
+    step2d = torch.full((1, 1), float(step), dtype=torch.float32,
+                        device=packed.device)
+
+    def plane(src, rows, g):
+        d = rows.shape[1]
+        slots = {nm: src[:, d * (1 + i):d * (2 + i)]
+                 for i, nm in enumerate(names)}
+        new_rows, new_slots = rule.update(rows, g, slots, step2d)
+        parts = [new_rows] + [new_slots.get(nm, slots[nm]) for nm in names]
+        full = torch.cat([x.to(torch.float32) for x in parts], dim=1)
+        return torch.nn.functional.pad(full, (0, wc - full.shape[1]))
+
+    if pf == 1:
+        return plane(packed, packed[:, :dim], grads)
+    half = dim // 2
+    even, odd = _planes(packed)
+    return _repack(plane(even, even[:, :half], grads[:, 0::2]),
+                   plane(odd, odd[:, :half], grads[:, 1::2]))
+
+
+def _fused_plain(t32, ch, cap, idx, packed, grads, rule, dim, slot_names,
+                 step, pf):
+    new = fused_update_tile(packed, grads, rule, dim, slot_names, step, pf)
+    _scatter_plain(t32, ch, cap, idx, new.view(torch.int32))
+
+
+def _fused_cuda(t32, ch, cap, idx, packed, grads, rule, dim, slot_names,
+                step, pf):
+    n = idx.shape[0]
+    if not n:
+        return
+    pos = [slot_names.index(nm) for nm in rule.slots] + [-1, -1]
+    hp = [float(h) for h in rule.hparams] + [0.0] * (8 - len(rule.hparams))
+    FUSED_UPDATE_SCATTER.launch(
+        t32.device, t32.data_ptr(), cap, ch, idx.data_ptr(), n,
+        packed.data_ptr(), grads.data_ptr(), dim, len(slot_names), pf,
+        _RULES[rule.kind], pos[0], pos[1], float(step), *hp)
+
+
+def fused_update_scatter(table2d: torch.Tensor, ch: int, idx: torch.Tensor,
+                         packed: torch.Tensor, grads: torch.Tensor,
+                         rule: FusedRule, *, dim: int, slot_names,
+                         cap: int, step: float = 0.0, pf: int = 1):
+    """Apply ``rule`` to each batch row and write the whole new row into
+    the PHYSICAL ``[(C+1)*ch, 128]`` table IN PLACE, at ``idx`` where
+    ``0 <= idx < cap``, else at the trash row. Returns ``table2d``.
+
+    ``packed`` is the lookup's ``[N, ch*128]`` block of 32-bit words (or
+    the same bytes as ``[N*ch, 128]``): ``[value | slot columns | pad]``
+    in f32 (``pf=1``) or as bf16 pairs (``pf=2``); ``grads`` ``[N, dim]``
+    f32; ``slot_names`` the table's sorted slot columns. The table's other
+    slot columns pass through, the padding is written as zeros. Valid
+    indices must be unique; ``packed`` must not alias the table.
+
+    CUDA tensors run the ``fused_update_scatter`` kernel; CPU tensors run
+    :func:`fused_update_scatter_plain`."""
+    slot_names = tuple(slot_names)
+    t32, idx, pk, g = _fused_args(table2d, ch, idx, packed, grads, rule, dim,
+                                  slot_names, cap, pf)
+    impl = _fused_cuda if _is_cuda(t32) else _fused_plain
+    impl(t32, ch, cap, idx, pk, g, rule, dim, slot_names, step, pf)
+    return table2d
+
+
+def fused_update_scatter_plain(table2d: torch.Tensor, ch: int,
+                               idx: torch.Tensor, packed: torch.Tensor,
+                               grads: torch.Tensor, rule: FusedRule, *,
+                               dim: int, slot_names, cap: int,
+                               step: float = 0.0, pf: int = 1):
+    """The plain PyTorch version of :func:`fused_update_scatter`: the
+    tile math (:func:`fused_update_tile`) then the plain row scatter, on
+    any device; also in place."""
+    slot_names = tuple(slot_names)
+    t32, idx, pk, g = _fused_args(table2d, ch, idx, packed, grads, rule, dim,
+                                  slot_names, cap, pf)
+    _fused_plain(t32, ch, cap, idx, pk, g, rule, dim, slot_names, step, pf)
+    return table2d

@@ -18,8 +18,13 @@ kernel aliases the table to its output), so the state a write is given
 shares its rows tensor with the state it returns. Key and score planes
 are written out of place.
 
-Only the serving path is ported here (probe, value gather, bulk upsert
-with eviction, dedup, export); the training plan is still to port.
+Ported: the serving path (probe, value gather, bulk upsert with eviction,
+dedup, export) and the training plan (``plan_lookup_train`` with its
+``plan_lookup`` miss branch, the duplicate probe, the packed-row layout
+helpers, slot columns, the key/score commits of the fused apply, the
+grad segment sum). Where the JAX package branches with ``lax.cond``, the
+port branches in Python on a value read back from the device (a host
+sync); each such read is marked ``# host sync``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from recommenders_addons_tpu_torch.utils.config import resolve_device
 
 _LANES = 128
 _INT32_MIN = -(1 << 31)
+_INT64_MIN = -(1 << 63)
 
 
 def torch_dtype(dt) -> torch.dtype:
@@ -183,6 +189,9 @@ class TableState:
     def slot_init(self, name: str) -> float:
         return dict(self.slot_inits).get(name, 0.0)
 
+    def slot_offset(self, name: str) -> int:
+        return self.dim * (1 + self.slot_names.index(name))
+
     def replace(self, **kw) -> "TableState":
         return dataclasses.replace(self, **kw)
 
@@ -259,6 +268,54 @@ def create(spec: TableSpec, device=None) -> TableState:
     )
 
 
+def _fill_word(value: float, value_dtype, container_dtype) -> torch.Tensor:
+    """One container word holding ``value`` in each of its packed lanes."""
+    pf = _pack_factor(value_dtype)
+    return torch.full((pf,), value, dtype=value_dtype).view(
+        container_dtype)[0]
+
+
+def with_slot(state: TableState, name: str,
+              init: float = 0.0) -> TableState:
+    """Add an optimizer slot column block (slot names stay sorted, so a
+    block's position is its name's rank). Rebuilds ``rows`` into a new,
+    wider container; the old one is left as it was."""
+    if name in state.slot_names:
+        return state
+    names = tuple(sorted(state.slot_names + (name,)))
+    inits = dict(state.slot_inits)
+    inits[name] = float(init)
+    d = state.dim
+    vdt = state.value_dtype
+    cdt = state.rows.dtype
+    pf = _pack_factor(vdt)
+    cap = state.capacity
+    new_w = _packed_width(d, len(names), vdt)
+    new_ch = new_w // (_LANES * pf)
+    out = torch.zeros(((cap + 1) * new_ch, _LANES), dtype=cdt,
+                      device=state.device)  # the trash row stays zero
+    if pf > 1 and d % pf == 0:
+        # container-word space: column blocks map 1:1 onto word blocks
+        d, w_old, w_new = d // pf, state.chunks * _LANES, new_ch * _LANES
+        src = state.rows[: cap * state.chunks].reshape(cap, w_old)
+        dst = out[: cap * new_ch].view(cap, w_new)
+        fill = {n: _fill_word(inits[n], vdt, cdt) for n in names}
+    else:
+        src = state.rows_logical
+        dst = _to_logical_rows(out, vdt, cap, new_w)
+        fill = {n: inits[n] for n in names}
+    dst[:, :d] = src[:, :d]
+    for j, n in enumerate(names):
+        new_off = d * (1 + j)
+        if n in state.slot_names:
+            off = d * (1 + state.slot_names.index(n))
+            dst[:, new_off:new_off + d] = src[:, off:off + d]
+        else:
+            dst[:, new_off:new_off + d] = fill[n]
+    return state.replace(rows=out, slot_names=names,
+                         slot_inits=tuple(sorted(inits.items())))
+
+
 # ---------------------------------------------------------------------------
 # probing
 # ---------------------------------------------------------------------------
@@ -321,6 +378,90 @@ def gather_packed(state: TableState, slot: torch.Tensor,
                             state.value_dtype, n, state.width)
 
 
+def gather_packed_phys(state: TableState, slot: torch.Tensor,
+                       found: torch.Tensor) -> torch.Tensor:
+    """Packed rows at ``slot`` in the PHYSICAL container layout
+    ``[N*ch, 128]`` (no relayout to the logical view)."""
+    idx = torch.where(found, slot, state.capacity)  # sentinel -> trash row
+    return cuda_ops.gather_rows_2d(state.rows, state.chunks, idx,
+                                   cap=state.capacity, masked=False,
+                                   flat=True)
+
+
+def packed_is_phys(state: TableState, n: int, packed: torch.Tensor) -> bool:
+    """True when a ctx packed block is in the PHYSICAL ``[N*ch, 128]``
+    container layout (vs the logical ``[N, W]`` view). Where the two
+    coincide (ch == 1, pf == 1) either reading is the same bytes."""
+    return (packed.dim() == 2 and packed.dtype == state.rows.dtype
+            and packed.shape[0] == n * state.chunks
+            and packed.shape[1] == _LANES)
+
+
+def packed_logical_view(state: TableState, n: int,
+                        packed: torch.Tensor) -> torch.Tensor:
+    """[N, W] logical view of a ctx packed block in either layout."""
+    if packed_is_phys(state, n, packed):
+        return _to_logical_rows(packed, state.value_dtype, n, state.width)
+    return packed
+
+
+def packed_value_rows(state: TableState, n: int,
+                      packed: torch.Tensor) -> torch.Tensor:
+    """[N, dim] value columns of a ctx packed block in either layout (for
+    the physical one, a slice of each row's first chunk)."""
+    d = state.dim
+    if not packed_is_phys(state, n, packed):
+        return packed[:, :d]
+    pf = _pack_factor(state.value_dtype)
+    if d % pf or d // pf > _LANES:
+        return packed_logical_view(state, n, packed)[:, :d]
+    dc = d // pf
+    col = packed.reshape(n, state.chunks, _LANES)[:, 0, :dc]
+    if pf == 1:
+        return col
+    return col.contiguous().view(state.value_dtype)
+
+
+def reset_inserted_slots(state: TableState, n: int, packed: torch.Tensor,
+                         inserted: torch.Tensor) -> torch.Tensor:
+    """Set a ctx packed block's SLOT columns to their fresh fills on
+    ``inserted`` rows (their gathered data is the trash row or a victim's
+    stale state), in either layout; the fused apply then reads slot state
+    verbatim. Writes ``packed`` in place (the lookup's own buffer) and
+    returns it in its layout."""
+    if not state.slot_names:
+        return packed
+    d = state.dim
+    vdt = state.value_dtype
+    if packed_is_phys(state, n, packed):
+        pf = _pack_factor(vdt)
+        dw = d // pf
+        view = packed.reshape(n, state.chunks * _LANES)
+        fresh = torch.zeros(view.shape[1] - dw, dtype=packed.dtype,
+                            device=packed.device)
+        for i, nm in enumerate(state.slot_names):
+            off = dw * (1 + i) - dw
+            fresh[off:off + dw] = _fill_word(state.slot_init(nm), vdt,
+                                             packed.dtype)
+        view[:, dw:] = torch.where(inserted[:, None], fresh, view[:, dw:])
+        return view.reshape(n * state.chunks, _LANES)
+    fresh = torch.zeros(state.width - d, dtype=vdt, device=packed.device)
+    for i, nm in enumerate(state.slot_names):
+        fresh[d * i:d * (i + 1)] = state.slot_init(nm)
+    packed[:, d:] = torch.where(inserted[:, None], fresh, packed[:, d:])
+    return packed
+
+
+def phys_packed_ok(state: TableState) -> bool:
+    """Whether ``plan_lookup_train`` carries its packed gather in the
+    PHYSICAL layout: for 16-bit values whose value columns fit in each
+    row's first chunk, the container words feed the bf16 fused apply
+    directly (the logical view would cost a 16-bit relayout each way).
+    Decided from dtype and shape only, on every device."""
+    pf = _pack_factor(state.value_dtype)
+    return pf == 2 and state.dim % pf == 0 and state.dim // pf <= _LANES
+
+
 def _scatter_rows_state(state: TableState, idx: torch.Tensor,
                         packed_rows: torch.Tensor) -> torch.Tensor:
     """Scatter logical [N, W] rows through the row-scatter kernel.
@@ -375,6 +516,243 @@ def lookup(spec: TableSpec, state: TableState, keys: torch.Tensor,
                                     dtype=spec.value_dtype,
                                     device=state.device)
     return gather(spec, state, slot, found, default_values), found
+
+
+# ---------------------------------------------------------------------------
+# fused dedup + probe + write planning (the training lookup)
+# ---------------------------------------------------------------------------
+
+
+def _dup_probe(n: int, cap: int, sidx: torch.Tensor):
+    """One scatter of batch positions into slot space, shared by the
+    duplicate test and the dedup. Returns ``(pos [N], buf [pad128(C+1)],
+    n_distinct)``: ``buf[s]`` is the LAST batch position whose slot is
+    ``s`` (-1 where untouched; misses land in the cell at ``cap``), and
+    ``n_distinct`` counts the touched live slots.
+
+    The JAX package's ``buf.at[sidx].set(pos)`` lets the last write win on
+    XLA's CPU; an indexed store with duplicate indices has no order on
+    CUDA, so the port takes the maximum position (``scatter_reduce``
+    amax), which is the same choice on every device."""
+    pos = torch.arange(n, dtype=torch.int32, device=sidx.device)
+    size = (cap + 1 + _LANES - 1) // _LANES * _LANES
+    buf = torch.full((size,), -1, dtype=torch.int32,
+                     device=sidx.device).scatter_reduce(
+        0, sidx.long(), pos, "amax")
+    n_distinct = (buf[:cap] != -1).sum()
+    return pos, buf, n_distinct
+
+
+def _unsigned_order(x: torch.Tensor, width: int) -> torch.Tensor:
+    """int64 holding unsigned ``width``-bit values -> int64 whose signed
+    order is their unsigned order (flip the sign bit of 64-bit values)."""
+    return x ^ _INT64_MIN if width == 64 else x
+
+
+def plan_lookup(spec: TableSpec, state: TableState, keys: torch.Tensor):
+    """Dedup + probe + write plan in ONE sort: keys sort by their mixed
+    bits rotated so the bucket bits lead, which keeps equal keys adjacent
+    (the mix is a bijection) and same-bucket keys contiguous, so the
+    within-bucket insert rank is a segmented cumsum.
+
+    Returns ``(uniq [N], inverse [N], (slot, found, inserted, dropped),
+    no_dups)``: each unique key sits at its representative's (its first
+    occurrence's) batch position, EMPTY elsewhere; ``no_dups`` (a Python
+    bool) says the batch held no duplicate valid key, and then ``inverse``
+    is the identity."""
+    flat = keys.reshape(-1)
+    n = flat.shape[0]
+    dev = flat.device
+    cap = state.capacity
+    bsz = spec.bucket_size
+    nb = spec.num_buckets.bit_length() - 1
+    width = 64 if flat.dtype == torch.int64 else 32
+    mask = -1 if width == 64 else 0xFFFFFFFF
+
+    def rotr(x, r):  # rotate right within ``width`` bits
+        if r == 0:
+            return x
+        return ((x << (width - r)) & mask) | hashing._srl(x, r)
+
+    rot = rotr(hashing.mix(flat), nb)
+    srt, order = torch.sort(_unsigned_order(rot, width), stable=True)
+    rot_s = _unsigned_order(srt, width)
+    b_s = (hashing._srl(rot_s, width - nb) if nb else
+           torch.zeros_like(rot_s)).to(torch.int32)
+    sk = hashing.unmix(rotr(rot_s, width - nb) if nb else rot_s,
+                       flat.dtype).to(flat.dtype)
+    sk_lo, sk_hi = split_key(sk)
+    is_start = torch.ones(n, dtype=torch.bool, device=dev)
+    is_start[1:] = rot_s[1:] != rot_s[:-1]
+
+    # probe, in sorted order
+    e_lo, e_hi = _split_int(spec.empty_key)
+    cl = _bucket_gather(spec, state.key_lo, b_s)  # [N, B]
+    chi = _bucket_gather(spec, state.key_hi, b_s)
+    match = (cl == sk_lo[:, None]) & (chi == sk_hi[:, None])
+    valid_s = sk != spec.empty_key
+    found_s = match.any(dim=-1) & valid_s
+    slot_found_s = b_s * bsz + _argmax_first(match)
+
+    # within-bucket insert rank: segmented exclusive cumsum
+    need_s = is_start & valid_s & ~found_s
+    ind = need_s.to(torch.int32)
+    pre = torch.cumsum(ind, dim=0, dtype=torch.int32) - ind
+    is_bstart = torch.ones(n, dtype=torch.bool, device=dev)
+    is_bstart[1:] = b_s[1:] != b_s[:-1]
+    rank_s = pre - torch.cummax(torch.where(is_bstart, pre, 0),
+                                dim=0).values
+
+    # slots claimed by found keys are neither free nor evictable
+    claimed = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+    claimed[torch.where(is_start & found_s, slot_found_s, cap).long()] = True
+    claimed_b = _bucket_gather(spec, claimed[:cap], b_s)
+    empty_b = (cl == e_lo) & (chi == e_hi)
+    free_b = empty_b & ~claimed_b
+    num_free = free_b.sum(dim=-1, dtype=torch.int32)
+    cf = torch.cumsum(free_b.to(torch.int32), dim=-1, dtype=torch.int32)
+    kth_free = _argmax_first(cf == (rank_s + 1)[:, None])
+    evictable_b = ~empty_b & ~claimed_b
+    num_evictable = evictable_b.sum(dim=-1, dtype=torch.int32)
+    use_free = rank_s < num_free
+    if bool((need_s & ~use_free).any()):  # host sync: a bucket overflows
+        sc = _bucket_gather(spec, state.scores, b_s)
+        sc = torch.where(evictable_b, sc, _score_max(sc.dtype))
+        kth_evict = _kth_lowest_slot(
+            sc, (rank_s - num_free).clamp(0, bsz - 1))
+    else:
+        kth_evict = torch.zeros(n, dtype=torch.int32, device=dev)
+    dropped_s = need_s & (rank_s >= num_free + num_evictable)
+    inserted_s = need_s & ~dropped_s
+    slot_s = torch.where(found_s, slot_found_s,
+                         b_s * bsz + torch.where(use_free, kth_free,
+                                                 kth_evict))
+
+    # per-unique outputs at the representative's batch position, through
+    # one packed word: slot in bits 0-27, the three flags in bits 28-30
+    if cap > 1 << 28:
+        raise ValueError("plan_lookup packs slots into 28 bits")
+    word_s = (slot_s | (found_s.to(torch.int32) << 28)
+              | (inserted_s.to(torch.int32) << 29)
+              | (dropped_s.to(torch.int32) << 30))
+    word = _set_drop(torch.zeros(n, dtype=torch.int32, device=dev),
+                     torch.where(is_start, order, n), word_s)
+    found = ((word >> 28) & 1).bool()
+    inserted = ((word >> 29) & 1).bool()
+    dropped = ((word >> 30) & 1).bool()
+    slot = torch.where(found | inserted, word & ((1 << 28) - 1), 0)
+    uniq = torch.where(found | inserted | dropped, flat, spec.empty_key)
+    no_dups = bool((is_start & valid_s).sum() == valid_s.sum())  # host sync
+    idx_s = torch.arange(n, dtype=torch.int32, device=dev)
+    if no_dups:
+        inverse = idx_s
+    else:
+        start_idx = torch.cummax(torch.where(is_start, idx_s, 0),
+                                 dim=0).values
+        inverse = torch.empty(n, dtype=torch.int32, device=dev)
+        inverse[order] = order[start_idx.long()].to(torch.int32)
+    return uniq, inverse, (slot, found, inserted, dropped), no_dups
+
+
+def plan_lookup_train(spec: TableSpec, state: TableState, keys: torch.Tensor,
+                      init_fn, score_const=None, defer_dedup=False):
+    """The training lookup's plan: probe, dedup, write plan, packed-row
+    gather and value-row blend, branched on the all-hit case.
+
+    Returns ``(uniq, inverse, (slot, found, inserted, dropped), packed,
+    no_dups, rows_aligned, new_key_lo, new_key_hi)`` plus ``new_scores``
+    when ``score_const`` is given, with the JAX package's contracts:
+
+    * hit batches keep each representative at its batch position (uniq IS
+      the batch when ``no_dups``) and gather one packed row PER OCCURRENCE
+      (``rows_aligned`` True); a miss batch goes through
+      :func:`plan_lookup` and its rows are per representative
+      (``rows_aligned == no_dups``);
+    * the packed block's value columns hold the blended row (stored row
+      for hits, ``init_fn`` row for misses) and inserted rows' slot
+      columns hold their fresh fills, so the fused apply reads the block
+      verbatim; its layout is physical when :func:`phys_packed_ok`;
+    * the returned key planes carry this batch's inserts, and with
+      ``score_const`` (a batch-constant score, LRU-style) the returned
+      score plane carries this batch's scores. The hit branch then uses
+      that score scatter as its duplicate probe: the number of entries
+      that newly equal the constant counts the distinct touched slots.
+
+    ``no_dups`` and ``rows_aligned`` are Python bools. Key and score planes
+    are new tensors; ``state`` is not changed."""
+    if defer_dedup:
+        raise NotImplementedError("defer_dedup is not ported yet")
+    flat = keys.reshape(-1)
+    n = flat.shape[0]
+    dev = flat.device
+    cap = state.capacity
+    d = state.dim
+    slot_f, found_f = find(spec, state, flat)
+    valid = flat != spec.empty_key
+    phys = phys_packed_ok(state)
+    gather_fn = gather_packed_phys if phys else gather_packed
+    scored = score_const is not None
+    if scored:
+        sc = state.scores.new_full((), int(score_const))
+        sc_vec = sc.expand(n)
+
+    if bool((found_f | ~valid).all()):  # host sync: all hit
+        sidx = torch.where(found_f, slot_f, cap)  # misses/EMPTY -> trash
+        zeros = torch.zeros(n, dtype=torch.bool, device=dev)
+        n_found = found_f.sum()
+        if scored:
+            # the score stamp writes equal values: duplicates cannot race
+            pos = torch.arange(n, dtype=torch.int32, device=dev)
+            before = (state.scores == sc).sum()
+            new_scores = _set_drop(state.scores, sidx, sc_vec)
+            no_dups = bool((new_scores == sc).sum() - before == n_found)
+        else:
+            pos, buf, n_distinct = _dup_probe(n, cap, sidx)
+            no_dups = bool(n_distinct == n_found)  # host sync
+        packed = gather_fn(state, slot_f, found_f)
+        if no_dups:
+            out = (flat, pos, (slot_f, found_f, zeros, zeros), packed)
+        else:
+            if scored:
+                _, buf, _ = _dup_probe(n, cap, sidx)
+            rep = take_elem(buf, sidx)
+            is_rep = (rep == pos) & found_f
+            uniq = torch.where(is_rep, flat, spec.empty_key)
+            inverse = torch.where(found_f, rep, pos)
+            out = (uniq, inverse, (slot_f, is_rep, zeros, zeros), packed)
+        out = out + (no_dups, True, state.key_lo, state.key_hi)
+        return out + (new_scores,) if scored else out
+
+    uniq, inverse, plan, no_dups = plan_lookup(spec, state, flat)
+    slot, found, inserted, _ = plan
+    if bool(found.any()):  # host sync: an all-insert batch reads no row
+        packed = gather_fn(state, slot, found)
+    elif phys:
+        packed = torch.zeros((n * state.chunks, _LANES),
+                             dtype=state.rows.dtype, device=dev)
+    else:
+        packed = torch.zeros((n, state.width), dtype=state.value_dtype,
+                             device=dev)
+    init_rows = init_fn(uniq)
+    stored = packed_value_rows(state, n, packed)
+    rows = torch.where(found[:, None], stored,
+                       init_rows.to(state.value_dtype))
+    if phys:
+        dc = d // _pack_factor(state.value_dtype)
+        packed.view(n, state.chunks, _LANES)[:, 0, :dc] = (
+            rows.contiguous().view(packed.dtype))
+    else:
+        packed[:, :d] = rows
+    packed = reset_inserted_slots(state, n, packed, inserted)
+    k_lo, k_hi = split_key(uniq)
+    ins_idx = torch.where(inserted, slot, cap)
+    out = (uniq, inverse, plan, packed, no_dups, no_dups,
+           _set_drop(state.key_lo, ins_idx, k_lo),
+           _set_drop(state.key_hi, ins_idx, k_hi))
+    if scored:
+        widx = torch.where(found | inserted, slot, cap)
+        out = out + (_set_drop(state.scores, widx, sc_vec),)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -466,11 +844,13 @@ def _plan_writes(spec: TableSpec, state: TableState, keys: torch.Tensor):
 
 
 def _pack_rows(state: TableState, n: int, values: Optional[torch.Tensor],
-               old_packed: torch.Tensor,
-               inserted: torch.Tensor) -> torch.Tensor:
+               old_packed: torch.Tensor, inserted: torch.Tensor,
+               slot_rows: Optional[Dict[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
     """The new packed [N, W] rows of a commit: ``values`` in the value
-    columns; slot columns kept where found and reset to their fresh fill
-    where inserted (eviction victims carry stale slot state)."""
+    columns; slot columns from ``slot_rows`` where given, else kept where
+    found and reset to their fresh fill where inserted (eviction victims
+    carry stale slot state)."""
     d = state.dim
     dt = state.value_dtype
     out = old_packed
@@ -481,6 +861,10 @@ def _pack_rows(state: TableState, n: int, values: Optional[torch.Tensor],
         out = torch.where(inserted[:, None], fresh, out)
     if values is not None:
         out[:, :d] = values.to(dt)  # ``out`` is this commit's own buffer
+    for nm, rows_nm in (slot_rows or {}).items():
+        if nm in state.slot_names:
+            off = state.slot_offset(nm)
+            out[:, off:off + d] = rows_nm.to(dt)
     return out
 
 
@@ -500,20 +884,24 @@ def commit(spec: TableSpec, state: TableState, keys: torch.Tensor,
 def commit_planned(spec: TableSpec, state: TableState, keys: torch.Tensor,
                    plan, values: Optional[torch.Tensor] = None,
                    scores: Optional[torch.Tensor] = None, *,
+                   slot_rows: Optional[Dict[str, torch.Tensor]] = None,
                    score_mode: str = "assign") -> TableState:
-    """Commit against a precomputed ``_plan_writes`` plan. The rows are
-    written in place (see the module docstring)."""
+    """Commit against a precomputed write plan (``_plan_writes``, or the
+    training lookup's). The rows are written in place (see the module
+    docstring); ``slot_rows`` sets slot columns of every placed key."""
     n = keys.shape[0]
     slot, found, inserted, _ = plan
     write = found | inserted
     idx = torch.where(write, slot, state.capacity)  # sentinel => dropped
-    if values is not None and not state.slot_names:
+    if values is not None and all(nm in (slot_rows or {})
+                                  for nm in state.slot_names):
         # the write covers every column: the old rows are never read
         old_packed = torch.zeros((n, state.width), dtype=state.value_dtype,
                                  device=state.device)
     else:
         old_packed = gather_packed(state, slot, write)
-    new_packed = _pack_rows(state, n, values, old_packed, inserted)
+    new_packed = _pack_rows(state, n, values, old_packed, inserted,
+                            slot_rows)
     new_rows = _scatter_rows_state(state, idx, new_packed)
 
     k_lo, k_hi = split_key(keys)
@@ -528,6 +916,44 @@ def commit_planned(spec: TableSpec, state: TableState, keys: torch.Tensor,
         rows=new_rows,
         scores=_set_drop(state.scores, idx, new_sc),
     )
+
+
+def commit_keys_scores(spec: TableSpec, state: TableState,
+                       keys: torch.Tensor, plan,
+                       scores: Optional[torch.Tensor] = None, *,
+                       score_mode: str = "assign") -> TableState:
+    """The key-plane and score updates of a planned commit, rows left
+    alone (the fused apply kernel writes them). The JAX package skips the
+    key scatters behind a cond on ``any(inserted)``; here they always run
+    (with no insert every index is the dropped sentinel), which spares a
+    host sync."""
+    slot, found, inserted, _ = plan
+    cap = state.capacity
+    idx = torch.where(found | inserted, slot, cap)
+    if scores is None:
+        scores = torch.ones(keys.shape, dtype=spec.score_dtype,
+                            device=state.device)
+    scores = scores.to(spec.score_dtype)
+    if score_mode == "add":
+        scores = scores + torch.where(found, take_elem(state.scores, slot), 0)
+    k_lo, k_hi = split_key(keys)
+    ins_idx = torch.where(inserted, slot, cap)
+    return state.replace(key_lo=_set_drop(state.key_lo, ins_idx, k_lo),
+                         key_hi=_set_drop(state.key_hi, ins_idx, k_hi),
+                         scores=_set_drop(state.scores, idx, scores))
+
+
+def commit_scores(spec: TableSpec, state: TableState, plan,
+                  scores: torch.Tensor, *,
+                  score_mode: str = "assign") -> TableState:
+    """The score-plane update of a planned commit whose key planes were
+    already committed (by ``plan_lookup_train``'s miss branch)."""
+    slot, found, inserted, _ = plan
+    idx = torch.where(found | inserted, slot, state.capacity)
+    scores = scores.to(spec.score_dtype)
+    if score_mode == "add":
+        scores = scores + torch.where(found, take_elem(state.scores, slot), 0)
+    return state.replace(scores=_set_drop(state.scores, idx, scores))
 
 
 def upsert(spec: TableSpec, state: TableState, keys: torch.Tensor,
@@ -610,3 +1036,17 @@ def unique_static(keys: torch.Tensor, size: Optional[int] = None, fill=None):
     inverse = torch.empty(n, dtype=torch.int32, device=flat.device)
     inverse[order] = gid_c.to(torch.int32)
     return uniq, inverse.reshape(keys.shape)
+
+
+def segment_sum_rows(g: torch.Tensor, seg: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """``out[t] = sum(g[i] for seg[i] == t)``, rows with ``seg`` outside
+    ``[0, num_segments)`` dropped: the grad combine over duplicate ids.
+    The JAX package's one-hot matmul per 128-row chunk is a TPU matrix-unit
+    device; here it is one ``index_add_`` (atomic adds on CUDA, so the sums
+    are taken in no fixed order)."""
+    seg = seg.reshape(-1).long()
+    idx = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
+    out = torch.zeros((num_segments + 1, g.shape[-1]), dtype=g.dtype,
+                      device=g.device)
+    return out.index_add_(0, idx, g)[:num_segments]

@@ -1,23 +1,29 @@
-"""`de.Variable` — the user-facing dynamic-embedding table, serving subset
-of the JAX package's ``ops/variable.py``.
+"""`de.Variable` — the user-facing dynamic-embedding table, the port of
+the JAX package's ``ops/variable.py``.
 
 A ``Variable`` is a static description (hashable); all storage lives in
 an explicit ``TableState`` the caller threads through its calls, on the
-Variable's ``device`` (default CUDA). This slice carries the inference
-surface: ``init``, ``lookup``, ``upsert`` (with LRU/LFU scores), ``size``
-and ``export``. The training surface (``embedding_lookup``,
-``apply_gradients``, optimizers) is still to port.
+Variable's ``device`` (default CUDA). Inference: ``init``, ``lookup``,
+``upsert`` (LRU/LFU/EPOCH* scores), ``size``, ``export``. Training::
+
+    emb, ctx = var.embedding_lookup(state, ids, step=step)
+    ... loss = f(emb); emb_grad = d loss / d emb ...
+    state = var.apply_gradients(state, ctx, emb_grad, optimizer, step=step)
+
+Waiting for a later slice (they raise): ``bp_v2`` deltas, deferred
+dedup, ``return_evicted``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Optional
+import zlib
+from typing import Any, Dict, Optional
 
 import torch
 
-from recommenders_addons_tpu_torch.ops import hashtable, initializers
+from recommenders_addons_tpu_torch.ops import hashtable, initializers, prng
 from recommenders_addons_tpu_torch.utils.config import (
     env_config,
     resolve_device,
@@ -38,6 +44,36 @@ class EvictStrategy(enum.Enum):
     CUSTOMIZED = 4
 
 
+@dataclasses.dataclass
+class LookupContext:
+    """Residuals of a training lookup, consumed by ``apply_gradients``
+    (the JAX package's ``LookupContext``, as tensors; ``no_dups`` and
+    ``rows_aligned`` are Python bools, read back once by the lookup)."""
+
+    unique_keys: torch.Tensor  # [U] deduplicated ids (EMPTY padded)
+    slot: torch.Tensor  # [U] int32 physical slot at lookup time
+    found: torch.Tensor  # [U] bool
+    rows: torch.Tensor  # [U, D] values as seen (init rows for misses)
+    inverse: torch.Tensor  # [N] int32: occurrence -> its unique position
+    # [U, W] (or physical [U*ch, 128]) packed rows: the lookup's own
+    # buffer; ``rows`` and the returned ``emb`` are views of it
+    packed: Optional[torch.Tensor] = None
+    # the write plan, computed at lookup time
+    inserted: Optional[torch.Tensor] = None
+    dropped: Optional[torch.Tensor] = None
+    # True: uniq IS the batch and inverse IS the identity
+    no_dups: Optional[bool] = None
+    # True: rows[i] is occurrence i's own row (no expansion gather)
+    rows_aligned: Optional[bool] = None
+    # key planes with this batch's inserts committed, and the score plane
+    # with its LRU-style scores committed (None: the apply commits them)
+    key_lo: Optional[torch.Tensor] = None
+    key_hi: Optional[torch.Tensor] = None
+    scores: Optional[torch.Tensor] = None
+    ids_shape: tuple = ()
+    deferred: bool = False
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Variable:
     """Static description of one dynamic-embedding table."""
@@ -55,6 +91,11 @@ class Variable:
     # None -> int32, int64 for the EPOCH* strategies (as the JAX package)
     score_dtype: Any = None
     device: Any = None  # None -> CUDA
+    # per-key init seed; None -> zlib.crc32(name), as the JAX package
+    seed: Optional[int] = None
+    # accepted for parity; True raises until the deltas path is ported
+    bp_v2: bool = False
+    defer_dedup: Optional[bool] = None
 
     # every value dtype whose container is 32-bit, which the row kernels
     # move (the JAX package's 64-bit and bool tables take XLA paths)
@@ -94,34 +135,64 @@ class Variable:
             bucket_size=self.bucket_size,
         )
 
+    @property
+    def empty_key(self) -> int:
+        return self.spec.empty_key
+
+    def _rng(self, device=None) -> torch.Tensor:
+        """The table's base threefry key, ``PRNGKey(seed)``."""
+        seed = self.seed
+        if seed is None:
+            seed = zlib.crc32(self.name.encode("utf-8"))
+        return prng.PRNGKey(seed, device=device)
+
     def init(self) -> TableState:
         """Empty state on the Variable's device (raises without CUDA
         unless the Variable was made with ``device="cpu"``)."""
         return hashtable.create(self.spec, resolve_device(self.device))
 
     def scores_for(self, keys: torch.Tensor,
-                   counts: Optional[torch.Tensor] = None, step: int = 0):
+                   counts: Optional[torch.Tensor] = None, step=0, epoch=0):
         """(scores [N], score_mode) per the evict strategy: LRU stamps
-        ``step`` (assign), LFU adds ``counts`` (default 1)."""
+        ``step`` (assign), LFU adds ``counts`` (default 1); the EPOCH*
+        strategies put the epoch above the step (bit 32 of int64 scores,
+        bit 20 of int32 ones), each clamped to its field, never wrapped."""
         n = keys.shape[0]
+        dev = keys.device
         sdt = self.spec.score_dtype
+        step = torch.as_tensor(step, device=dev).to(sdt)
+        epoch = torch.as_tensor(epoch, device=dev).to(sdt)
+        eshift = 32 if sdt == torch.int64 else 20
+        emax = (1 << ((63 if sdt == torch.int64 else 31) - eshift)) - 1
+        c = (torch.ones((n,), dtype=sdt, device=dev) if counts is None
+             else counts.to(sdt))
         if self.evict_strategy == EvictStrategy.LRU:
-            return torch.full((n,), step, dtype=sdt,
-                              device=keys.device), "assign"
+            return step.expand(n).clone(), "assign"
         if self.evict_strategy == EvictStrategy.LFU:
-            c = (torch.ones((n,), dtype=sdt, device=keys.device)
-                 if counts is None else counts.to(sdt))
             return c, "add"
+        efield = epoch.clamp(max=emax) << eshift
+        if self.evict_strategy == EvictStrategy.EPOCHLRU:
+            s = efield | step.clamp(max=(1 << eshift) - 1)
+            return s.expand(n).clone(), "assign"
+        if self.evict_strategy == EvictStrategy.EPOCHLFU:
+            return efield + c, "add"
         raise NotImplementedError(
             f"{self.evict_strategy} scores are not ported yet")
 
     def lookup(self, state: TableState, ids, *,
-               return_exists: bool = False):
-        """Pure lookup; missing ids -> the static default row."""
+               return_exists: bool = False,
+               use_init_for_missing: bool = False):
+        """Pure lookup; missing ids -> the static default row (or their
+        per-key initial rows)."""
         flat = self._flat_kv(ids, device=state.device)
         slot, found = hashtable.find(self.spec, state, flat)
-        default = initializers.default_value_of(
-            self.initializer, self.dim, self.value_dtype, state.device)
+        if use_init_for_missing:
+            default = initializers.materialize_rows(
+                self.initializer, self._rng(state.device), flat, self.dim,
+                self.value_dtype)
+        else:
+            default = initializers.default_value_of(
+                self.initializer, self.dim, self.value_dtype, state.device)
         vals = hashtable.gather(self.spec, state, slot, found, default)
         shape = tuple(torch.as_tensor(ids).shape)
         vals = vals.reshape(shape + (self.dim,))
@@ -138,13 +209,116 @@ class Variable:
             device=device, dtype=self.value_dtype).reshape(-1, self.dim)
         return keys, values
 
-    def upsert(self, state: TableState, keys, values,
-               step: int = 0) -> TableState:
+    # -- training ------------------------------------------------------
+
+    def lookup_score_const(self, step, epoch):
+        """The batch-constant score a training lookup commits, or None to
+        leave scoring to the apply: LRU given ``step``; EPOCHLRU given
+        both ``step`` and ``epoch`` (assuming epoch 0 would make fresh
+        rows look older than rows of later epochs)."""
+        if step is None:
+            return None
+        if self.evict_strategy == EvictStrategy.EPOCHLRU and epoch is None:
+            return None
+        if self.evict_strategy not in (EvictStrategy.LRU,
+                                       EvictStrategy.EPOCHLRU):
+            return None
+        sc, _ = self.scores_for(torch.zeros((1,), dtype=self.key_dtype),
+                                step=step,
+                                epoch=0 if epoch is None else epoch)
+        return sc[0]
+
+    def embedding_lookup(self, state: TableState, ids, *, step=None,
+                         epoch=None):
+        """Trainable lookup with built-in dedup. Returns ``(emb
+        [ids.shape + (dim,)], LookupContext)``; pass the gradient of the
+        loss with respect to ``emb`` to :meth:`apply_gradients`.
+
+        Pass the training ``step`` (and ``epoch`` for EPOCHLRU) here and
+        the batch's scores are committed at lookup time, where the score
+        scatter doubles as the duplicate probe; the fused apply then
+        leaves scores alone. ``emb`` is a view of the lookup's packed rows
+        (``ctx.packed``), which the apply reads."""
+        if self.bp_v2 or self.defer_dedup:
+            raise NotImplementedError(
+                "bp_v2 and defer_dedup are not ported yet")
+        ids = torch.as_tensor(ids)
+        flat = self._flat_kv(ids, device=state.device)
+        n = flat.shape[0]
+        score_const = self.lookup_score_const(step, epoch)
+        base = self._rng(state.device)
+        out = hashtable.plan_lookup_train(
+            self.spec, state, flat,
+            lambda u: initializers.materialize_rows(
+                self.initializer, base, u, self.dim, self.value_dtype),
+            score_const=score_const)
+        (uniq, inverse, (slot, found, inserted, dropped), packed, no_dups,
+         rows_aligned, new_lo, new_hi) = out[:8]
+        rows = hashtable.packed_value_rows(state, n, packed)
+        ctx = LookupContext(
+            unique_keys=uniq, slot=slot, found=found, rows=rows,
+            inverse=inverse, packed=packed, inserted=inserted,
+            dropped=dropped, no_dups=no_dups, rows_aligned=rows_aligned,
+            key_lo=new_lo, key_hi=new_hi,
+            scores=out[8] if score_const is not None else None,
+            ids_shape=tuple(ids.shape))
+        emb = rows if rows_aligned else rows[inverse.long()]
+        return emb.reshape(tuple(ids.shape) + (self.dim,)), ctx
+
+    def reduce_gradient(self, ctx: LookupContext, emb_grad: torch.Tensor):
+        """Gradient of the whole ``emb`` -> per-unique-row grads (duplicate
+        ids summed)."""
+        if ctx.deferred:
+            raise NotImplementedError("deferred dedup is not ported yet")
+        u = ctx.unique_keys.shape[0]
+        g = emb_grad.reshape(-1, self.dim)
+        inv = ctx.inverse.reshape(-1)
+        no_dups = ctx.no_dups
+        if no_dups is None and g.shape[0] == u:
+            no_dups = bool((inv == torch.arange(u, device=inv.device)).all())
+        if g.shape[0] == u and no_dups:
+            return g
+        return hashtable.segment_sum_rows(g, inv, u)
+
+    def writeback(self, state: TableState, ctx: LookupContext,
+                  new_rows: torch.Tensor,
+                  slot_rows: Optional[Dict[str, torch.Tensor]] = None,
+                  step=0, epoch=0) -> TableState:
+        """Write trained rows (and optimizer slot rows) back through the
+        lookup's write plan; the rows are written in place."""
+        if self.bp_v2:
+            raise NotImplementedError("bp_v2 deltas are not ported yet")
+        scores, mode = self.scores_for(ctx.unique_keys, step=step,
+                                       epoch=epoch)
+        if ctx.inserted is None:
+            plan = hashtable._plan_writes(self.spec, state, ctx.unique_keys)
+        else:
+            plan = (ctx.slot, ctx.found, ctx.inserted, ctx.dropped)
+        return hashtable.commit_planned(
+            self.spec, state, ctx.unique_keys, plan, values=new_rows,
+            slot_rows=slot_rows, scores=scores, score_mode=mode)
+
+    def apply_gradients(self, state: TableState, ctx: LookupContext, grads,
+                        optimizer, step=0, epoch=0,
+                        return_evicted: bool = False) -> TableState:
+        """Sparse optimizer step on the touched rows (ops/optimizer.py).
+        ``grads`` is the gradient with respect to ``emb`` (reduced over
+        duplicates here)."""
+        from recommenders_addons_tpu_torch.ops import optimizer as opt_lib
+
+        return opt_lib.apply_gradients(
+            self, state, ctx, grads, optimizer, step=step, epoch=epoch,
+            return_evicted=return_evicted)
+
+    # -- direct KV ops ---------------------------------------------------
+
+    def upsert(self, state: TableState, keys, values, step=0,
+               epoch=0) -> TableState:
         """Insert-or-assign; duplicate keys resolve last-write-wins. The
         rows are written in place (hashtable module docstring)."""
         keys, values = self._flat_kv(keys, values, device=state.device)
         uniq, (uvals,) = hashtable.dedup_last(keys, (values,))
-        scores, mode = self.scores_for(uniq, step=step)
+        scores, mode = self.scores_for(uniq, step=step, epoch=epoch)
         return hashtable.commit(self.spec, state, uniq, values=uvals,
                                 scores=scores, score_mode=mode)
 

@@ -4,17 +4,27 @@ imports nothing of JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py
 
-Tests marked ``gpu`` need an NVIDIA card and skip without one. The tables
-hold random 32-bit words (NaN bit patterns included) and the kernels only
-move them, so every comparison is bit-exact (on int32 views)."""
+Tests marked ``gpu`` need an NVIDIA card and skip without one. For the
+row gather and scatter the tables hold random 32-bit words (NaN bit
+patterns included) and the kernels only move them, so every comparison is
+bit-exact (on int32 views). The fused optimizer-scatter computes: rows it
+does not write stay bit-exact, and updated f32 words agree within 4 ulps
+(powf and the divisions round independently), bf16 halves within 1 ulp."""
 
 import numpy as np
 import pytest
 import torch
 
 from recommenders_addons_tpu_torch.ops import cuda_ops
+from recommenders_addons_tpu_torch.ops import optimizer as opt_lib
 
 LANES = 128
+OPTIMIZERS = {"sgd": opt_lib.SGD(0.05), "momentum": opt_lib.Momentum(0.05),
+              "nesterov": opt_lib.Momentum(0.05, nesterov=True),
+              "adagrad": opt_lib.Adagrad(0.05), "adam": opt_lib.Adam(0.05),
+              "adamw": opt_lib.AdamW(0.05), "rmsprop": opt_lib.RMSprop(0.05),
+              "ftrl": opt_lib.FTRL(0.05, l1_regularization_strength=0.01,
+                                   l2_regularization_strength=0.01)}
 
 
 @pytest.fixture
@@ -74,7 +84,90 @@ def test_cpu_tensors_never_launch_a_kernel():
     cuda_ops.gather_rows_2d(t, 1, torch.arange(4))
     cuda_ops.scatter_rows_set_2d(t, 1, torch.arange(4),
                                  torch.zeros(4, LANES))
-    assert [k.launches for k in cuda_ops.KERNELS] == [0, 0]
+    cuda_ops.fused_update_scatter(
+        t, 1, torch.arange(4), torch.zeros(4, LANES), torch.zeros(4, 8),
+        opt_lib.SGD().fused_rule(), dim=8, slot_names=(), cap=8)
+    assert [k.launches for k in cuda_ops.KERNELS] == [0] * len(
+        cuda_ops.KERNELS)
+
+
+def _fused_case(name, pf, cap, n, dim=64, seed=0):
+    """A table with the optimizer's slots plus one foreign slot column
+    ("zz", passed through), packed rows of valid values, grads, and
+    indices with unique slots, sentinels, negatives and past-the-end."""
+    opt = OPTIMIZERS[name]
+    names = tuple(sorted(set(opt.slot_specs()) | {"zz"}))
+    vdt = torch.float32 if pf == 1 else torch.bfloat16
+    w = -(-dim * (1 + len(names)) // (LANES * pf)) * LANES * pf
+    ch = w // (LANES * pf)
+    rng = np.random.default_rng(seed)
+    logical = rng.uniform(0.05, 1.0, size=(cap + 1, w)).astype(np.float32)
+    table = torch.from_numpy(logical).to(vdt).contiguous().view(
+        torch.float32).reshape((cap + 1) * ch, LANES)
+    packed = torch.from_numpy(rng.uniform(0.05, 1.0, size=(n, w)).astype(
+        np.float32)).to(vdt).contiguous().view(torch.float32)
+    grads = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32))
+    idx = torch.from_numpy(rng.permutation(cap)[:n].astype(np.int32))
+    idx[::7], idx[3::11], idx[5::13] = cap, -1, cap + 3
+    return opt, names, ch, table, packed, grads, idx
+
+
+def test_plain_fused_update_against_numpy():
+    """SGD into an f32 table with a foreign slot column: values move by
+    -lr * g, the foreign slot and the untouched rows keep their words, the
+    padding is zeroed."""
+    cap, n, dim = 40, 24, 16
+    opt, names, ch, table, packed, grads, idx = _fused_case(
+        "sgd", 1, cap, n, dim=dim)
+    assert names == ("zz",) and ch == 1
+    before = table.clone().numpy()
+    want = before.copy()
+    for j, i in enumerate(idx.tolist()):
+        if 0 <= i < cap:
+            row = packed[j].numpy().copy()
+            row[:dim] = row[:dim] - np.float32(0.05) * grads[j].numpy()
+            row[2 * dim:] = 0.0
+            want[i] = row
+    out = cuda_ops.fused_update_scatter(
+        table, ch, idx, packed, grads, opt.fused_rule(), dim=dim,
+        slot_names=names, cap=cap, step=3.0)
+    assert out is table  # in place
+    np.testing.assert_array_equal(table.numpy()[:cap].view(np.int32),
+                                  want[:cap].view(np.int32))
+
+
+def test_fused_update_argument_checks():
+    opt, names, ch, table, packed, grads, idx = _fused_case("adam", 1, 16, 8)
+    rule = opt.fused_rule()
+    kw = dict(dim=64, slot_names=names, cap=16)
+    with pytest.raises(ValueError):  # the table lacks the optimizer's slots
+        cuda_ops.fused_update_scatter(table, ch, idx, packed, grads, rule,
+                                      dim=64, slot_names=("zz",), cap=16)
+    with pytest.raises(ValueError):  # grads of the wrong width
+        cuda_ops.fused_update_scatter(table, ch, idx, packed, grads[:, :8],
+                                      rule, **kw)
+    with pytest.raises(ValueError):  # no trash row
+        cuda_ops.fused_update_scatter(table, ch, idx, packed, grads, rule,
+                                      dim=64, slot_names=names, cap=17)
+    with pytest.raises(ValueError):  # a rule the kernel does not know
+        cuda_ops.fused_update_scatter(
+            table, ch, idx, packed, grads,
+            cuda_ops.FusedRule("lion", (0.1,), (), opt.update), **kw)
+
+
+def _ulps32(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Max distance in f32 ulps between two f32 tensors of one sign."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _ulps_bf16(a: torch.Tensor, b: torch.Tensor) -> int:
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
 
 
 def test_argument_checks():
@@ -121,3 +214,36 @@ def test_kernels_match_plain_on_card(cuda, ch, vc):
     torch.cuda.synchronize()
     live = cap * ch
     assert torch.equal(a[:live].view(torch.int32), b[:live].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,pf", [(k, 1) for k in OPTIMIZERS]
+                         + [("adam", 2), ("adagrad", 2)])
+def test_fused_update_scatter_matches_plain_on_card(cuda, name, pf):
+    cap, n = 1 << 12, 1000
+    opt, names, ch, table, packed, grads, idx = _fused_case(name, pf, cap, n)
+    table, packed, grads, idx = (t.to(cuda) for t in (table, packed, grads,
+                                                       idx))
+    a, b = table.clone(), table.clone()
+    before = cuda_ops.FUSED_UPDATE_SCATTER.launches
+    for t, fn in ((a, cuda_ops.fused_update_scatter),
+                  (b, cuda_ops.fused_update_scatter_plain)):
+        fn(t, ch, idx, packed, grads, opt.fused_rule(), dim=64,
+           slot_names=names, cap=cap, step=4.0, pf=pf)
+    torch.cuda.synchronize()
+    assert cuda_ops.FUSED_UPDATE_SCATTER.launches == before + 1
+    live = cap * ch
+    written = torch.zeros(cap, dtype=torch.bool, device=cuda)
+    valid = idx[(idx >= 0) & (idx < cap)].long()
+    written[valid] = True
+    rows_a = a[:live].reshape(cap, ch * LANES)
+    rows_b = b[:live].reshape(cap, ch * LANES)
+    assert torch.equal(rows_a[~written].view(torch.int32),
+                       rows_b[~written].view(torch.int32))
+    assert not torch.equal(rows_a[written], table[:live].reshape(
+        cap, ch * LANES)[written])
+    if pf == 1:
+        assert _ulps32(rows_a[written], rows_b[written]) <= 4
+    else:
+        assert _ulps_bf16(rows_a[written].view(torch.bfloat16),
+                          rows_b[written].view(torch.bfloat16)) <= 1
