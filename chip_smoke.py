@@ -46,15 +46,25 @@ Phases (any failure exits non-zero):
    normal(0.05)): embedding_lookup + apply_gradients on batches of 65,536
    ids: fresh, all-hit, zipf duplicates, fresh again, and, after filling
    the table to capacity, fresh ids that must evict.
+5. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
+   dma_bench.py) at its two full-width shapes, 2Mi rows of 2 chunks (its
+   default) and 4Mi rows of 1: every variant of its two lists, a
+   predicated gather (row and premultiplied predicate) and a predicated
+   scatter, each bit-exact against its plain version on random words at
+   N = 66,573 with sentinel, negative and past-the-end indices; then the
+   tool's main() at both shapes (ns/row slopes, ms per 65,536-row call,
+   bytes bounds, beside row_gather/row_scatter and index_select /
+   index_copy_); then its four kernels' plain versions timed.
 
-Each main path (serving, DLRM training, table step) is driven with the
-kernels' launch counts set to 0 just before it and read just after; a
-kernel of the path that was not launched fails the run.
+Each main path (serving, DLRM training, table step, dma_bench) is driven
+with the kernels' launch counts set to 0 just before it and read just
+after; a kernel of the path that was not launched fails the run.
 
 Output: the card's name and power limit on a line of its own,
-``{"serving": ...}``, ``{"training": ...}``, ``{"kernels": [...]}`` and
-last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
-package beside it, it exits non-zero and prints no result.
+``{"serving": ...}``, ``{"training": ...}``, ``{"dma_bench": ...}``,
+``{"kernels": [...]}`` and last ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the package beside it, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -86,10 +96,11 @@ DLRM_BATCH = 4096  # bench.py's DLRM batch: 4096 x 26 = 106,496 keys
 DLRM_STEPS = 20
 TABLE_CAP = 1 << 21  # bench.py CAP
 TABLE_N = 65536  # bench.py's larger batch
+# tools/dma_bench.py: its default (2Mi rows of 1 KiB, bench.py's CAP and
+# table-step row) and kernel 1's serving shape (4Mi rows of 512 B)
+DMA_SHAPES = ((21, 2), (22, 1))
+DMA_N_CHECK = 65536 + 1037  # ragged: a partial tile and group
 
-# device memory rate by card name (NVIDIA data sheets), for the bounds
-_MEM_BYTES_PER_S = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
-                    ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 _F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per updated column of Adagrad (ops/optimizer.py:
 # g*g, +, sqrt, +, lr*g, /, -), for the fused kernel's operations bound
@@ -104,27 +115,22 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _mem_rate(name: str) -> float:
-    for sub, rate in _MEM_BYTES_PER_S:
-        if sub in name:
-            return rate
-    raise RuntimeError(f"no memory rate on record for card {name!r}")
-
-
 def _time_ms(torch, fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events),
-    after two warm-up calls."""
+    """Mean device time of ``fn`` over ``iters`` launches, after two
+    warm-up calls: CUDA events behind a device spin that lets the host
+    queue every launch first (dma_bench.seconds), so host launch gaps
+    between short kernels are not counted."""
+    from recommenders_addons_tpu_torch.tools.dma_bench import seconds
+
     for _ in range(2):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    return seconds(calls, torch.device("cuda"), iters) / iters * 1e3
 
 
 def _device_profile(torch, fn, iters: int = 10, top_n: int = 5):
@@ -800,6 +806,135 @@ def table_step_phase(torch, cuda_ops, dev, seed):
     return out
 
 
+def _dma_inputs(torch, dev, gen, cap, ch, n):
+    """A [cap*ch, 128] table of random words; gather indices (random
+    rows) and scatter indices (unique rows), each with sentinels,
+    negatives and past-the-end indices mixed in; random words for the
+    scattered rows."""
+    words = (-(1 << 31), (1 << 31) - 1)
+    table = torch.randint(*words, (cap * ch, LANES), dtype=torch.int32,
+                          device=dev, generator=gen).view(torch.float32)
+    idx = torch.randint(0, cap, (n,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    sidx = torch.randperm(cap, device=dev, generator=gen)[:n].to(torch.int32)
+    for i in (idx, sidx):
+        i[::97], i[3::101], i[5::103] = cap, -1, cap + 9
+    rows = torch.randint(*words, (n * ch, LANES), dtype=torch.int32,
+                         device=dev, generator=gen).view(torch.float32)
+    return table, idx, sidx, rows
+
+
+def dma_bench_phase(torch, cuda_ops, dev, gen, card):
+    """Phase 5: the row-copy micro-benchmark (tools/dma_bench.py) at its
+    two full-width shapes: every variant of its lists, plus a predicated
+    gather (row and premultiplied predicate) and a predicated scatter,
+    held bit-exact against its plain version at a ragged N; then the
+    tool's main() at both shapes, the path whose launches are counted;
+    then each of its four kernels timed beside its plain version."""
+    from recommenders_addons_tpu_torch.tools import dma_bench
+
+    pred = dict(nbuf=8, predicated=True, bitand=False, unroll=4)
+    gathers = [kw for _, kw in dma_bench.VARIANTS] + [
+        dict(pred, premul=False), dict(pred, premul=True)]
+    scatters = [kw for _, kw in dma_bench.SC_VARIANTS] + [
+        dict(nbuf=8, predicated=True, unroll=4, extra_rows=1, premul=False)]
+    errs = {k.name: 0 for k in (cuda_ops.DMA_GATHER,
+                                cuda_ops.DMA_GATHER_GROUPED,
+                                cuda_ops.DMA_SCATTER_GROUPED,
+                                cuda_ops.DMA_SCATTER)}
+    checked = {}
+    for log2cap, ch in DMA_SHAPES:
+        cap = 1 << log2cap
+        table, idx, sidx, rows = _dma_inputs(torch, dev, gen, cap, ch,
+                                             DMA_N_CHECK)
+        for kw in gathers:
+            fn = dma_bench.make_variant(kw, ch=ch, scatter=False)
+            e = _same_bits(torch, fn(table, idx), fn.plain(table, idx))
+            errs[fn.kernel.name] = max(errs[fn.kernel.name], e)
+        trash = torch.cat([table, table.new_zeros((ch, LANES))])
+        del table
+        for kw in scatters:
+            fn = dma_bench.make_variant(kw, ch=ch, scatter=True)
+            a = trash.clone()
+            fn(a, sidx, rows)
+            b = trash.clone()
+            fn.plain(b, sidx, rows)
+            e = _same_bits(torch, a[:cap * ch], b[:cap * ch])
+            errs[fn.kernel.name] = max(errs[fn.kernel.name], e)
+            del a, b
+        del trash, idx, sidx, rows
+        torch.cuda.empty_cache()
+        checked[f"cap={cap} ch={ch}"] = len(gathers) + len(scatters)
+    bad = [k for k, e in errs.items() if e]
+    if bad:
+        raise AssertionError(f"dma_bench kernels disagree with their plain "
+                             f"versions: {bad}")
+
+    # -- the main path: counters from 0, the tool at both shapes ---------
+    cuda_ops.reset_launches()
+    runs = {}
+    for log2cap, ch in DMA_SHAPES:
+        runs[f"cap={1 << log2cap} ch={ch}"] = dma_bench.main(
+            [str(log2cap), str(ch)], device=dev)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in cuda_ops.KERNELS}
+    missing = [k for k in errs if not launches[k]]
+    if missing:
+        raise AssertionError(f"not launched on the dma_bench path: "
+                             f"{missing} ({launches})")
+    for run in runs.values():
+        for e in [*run["gather"].values(), *run["scatter"].values()]:
+            if not (math.isfinite(e["ns_per_row"]) and e["ms"] > 0):
+                raise AssertionError(f"dma_bench timing not finite: {e}")
+
+    # -- each kernel beside its plain version at the tool's default shape
+    log2cap, ch = DMA_SHAPES[0]
+    cap = 1 << log2cap
+    main_run = runs[f"cap={cap} ch={ch}"]
+    table, idx, sidx, rows = _dma_inputs(torch, dev, gen, cap, ch,
+                                         dma_bench.BATCHES[1])
+    trash = torch.cat([table, table.new_zeros((ch, LANES))])
+    sidx = torch.where((sidx >= 0) & (sidx <= cap), sidx, cap)
+    results = []
+    for name, (variant, kw), scatter, replaces, fn_name, lib in (
+            ("dma_gather", dma_bench.VARIANTS[0], False, 32,
+             "make_gather (pallas_call :96)", "torch.index_select"),
+            ("dma_gather_grouped", dma_bench.VARIANTS[2], False, 114,
+             "make_gather_grouped (pallas_call :164)", "torch.index_select"),
+            ("dma_scatter_grouped", dma_bench.SC_VARIANTS[2], True, 182,
+             "make_scatter_grouped (pallas_call :228)",
+             "torch.Tensor.index_copy_"),
+            ("dma_scatter", dma_bench.SC_VARIANTS[0], True, 251,
+             "make_scatter (pallas_call :314)", "torch.Tensor.index_copy_")):
+        fn = dma_bench.make_variant(kw, ch=ch, scatter=scatter)
+        if scatter:
+            plain_ms = _time_ms(torch, lambda: fn.plain(trash, sidx, rows), 10)
+        else:
+            plain_ms = _time_ms(torch, lambda: fn.plain(table, idx), 10)
+        e = main_run["scatter" if scatter else "gather"][variant]
+        results.append({
+            "name": name, "route": "cuda",
+            "source": f"recommenders_addons_tpu_torch/csrc/{name}.cu",
+            "replaces": f"tools/dma_bench.py:{replaces}",
+            "replaces_fn": fn_name, "variant": variant,
+            "max_abs_err": errs[name], "match": errs[name] == 0,
+            "ms": e["ms"], "kernel_ms": e["ms"], "ns_per_row": e["ns_per_row"],
+            "plain_ms": plain_ms,
+            "library_ms": main_run["scatter" if scatter else "gather"][
+                lib]["ms"],
+            "library_call": lib, "bound_ms": e["bound_ms"],
+            "bound_by": "bytes", "bytes": e["bytes"],
+            "shape": f"CAP={cap} ch={ch} N={dma_bench.BATCHES[1]}",
+        })
+    del table, trash, idx, sidx, rows
+    torch.cuda.empty_cache()
+    summary = {"card": card, "checked_variants": checked,
+               "check_n": DMA_N_CHECK, "bit_exact": True,
+               "launches": launches, "runs": runs}
+    return results, summary
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -812,6 +947,7 @@ def main(argv=None) -> int:
         return 1
     try:
         from recommenders_addons_tpu_torch.ops import cuda_ops
+        from recommenders_addons_tpu_torch.tools.dma_bench import mem_rate
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script "
               f"({e})", file=sys.stderr)
@@ -819,7 +955,7 @@ def main(argv=None) -> int:
 
     card = _card_line()
     name = torch.cuda.get_device_name(0)
-    rate = _mem_rate(name)
+    rate = mem_rate(name)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     cuda_ops.build_kernels()  # one nvcc per source, all started together
@@ -832,9 +968,13 @@ def main(argv=None) -> int:
     training = training_phase(torch, cuda_ops, dev, args.seed)
     torch.cuda.empty_cache()
     table_step = table_step_phase(torch, cuda_ops, dev, args.seed)
+    torch.cuda.empty_cache()
+    dma_kernels, dma = dma_bench_phase(torch, cuda_ops, dev, gen, card)
+    kernels += dma_kernels
     paths = {"serving": serving["launches"],
              "dlrm_training": training["launches"],
-             "table_step": table_step["launches"]}
+             "table_step": table_step["launches"],
+             "dma_bench": dma["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -847,6 +987,7 @@ def main(argv=None) -> int:
                                       mem_bytes_per_s=rate, card=card)}))
     print(json.dumps({"training": dict(training, table_step=table_step,
                                        card=card)}))
+    print(json.dumps({"dma_bench": dma}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

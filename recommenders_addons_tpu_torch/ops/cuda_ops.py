@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the dynamic-embedding hot path — the
 port's counterpart of the JAX package's ``ops/pallas_ops.py``.
 
-Three kernels, all CUDA C++ for Hopper (``sm_90a``) under ``csrc/``:
+Three kernels of the library's paths, all CUDA C++ for Hopper
+(``sm_90a``) under ``csrc/``:
 
 * ``row_gather`` (``csrc/row_gather.cu``) replaces the Pallas
   ``_gather_kernel`` (pallas_ops.py:165) behind :func:`gather_rows_2d`;
@@ -14,7 +15,14 @@ Three kernels, all CUDA C++ for Hopper (``sm_90a``) under ``csrc/``:
   :func:`fused_update_scatter`: a named optimizer's row update fused into
   the row scatter.
 
-All three are indexed data movement (the third with a few flops per
+The registry also holds the four kernels of the row-copy
+micro-benchmark (``DMA_GATHER``, ``DMA_GATHER_GROUPED``,
+``DMA_SCATTER_GROUPED``, ``DMA_SCATTER``: Hopper bulk copies counted on
+mbarriers or bulk groups, sharing ``csrc/bulk_copy.cuh``), whose wrappers
+live in ``tools/dma_bench.py``, so one build and one launch count cover
+every kernel of the port.
+
+All are indexed data movement (the fused apply with a few flops per
 word), so all are bound by bytes: the sources say what their design does
 about that. Tables keep the JAX
 package's physical layout, a ``[(C+1)*ch, 128]`` container of 32-bit words
@@ -30,13 +38,13 @@ fallback: a kernel that does not build or launch raises.
 Kernels are compiled with ``nvcc`` into ``build/torch_kernels/`` beside the
 package, at first use (or all at once, in parallel, by
 :func:`build_kernels`), into shared libraries with a plain C interface
-that ``ctypes`` loads; the library name carries a hash of its source, so
-an edited source is rebuilt. Each kernel counts its launches
-(``ROW_GATHER.launches``, ``ROW_SCATTER.launches``,
-``FUSED_UPDATE_SCATTER.launches``), so a run can show that its path went
-through the kernels. The libraries are built without fused multiply-add
-(``-fmad=false``): the fused apply's products and sums then round as the
-separate operations of its plain version and of XLA do.
+that ``ctypes`` loads; the library name carries a hash of its source and
+the shared headers, so an edited source is rebuilt. Each kernel counts
+its launches (``ROW_GATHER.launches``, ``ROW_SCATTER.launches``, ...), so
+a run can show that its path went through the kernels. The libraries are
+built without fused multiply-add (``-fmad=false``): the fused apply's
+products and sums then round as the separate operations of its plain
+version and of XLA do.
 """
 
 from __future__ import annotations
@@ -88,8 +96,12 @@ class _Kernel:
 
     @property
     def library(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes()).hexdigest()[:12]
-        return _BUILD_DIR / f"lib{self.name}-{digest}.so"
+        """The built library; its name hashes the source and every shared
+        header in ``csrc/``, so an edit to either is rebuilt."""
+        h = hashlib.sha1(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.read_bytes())
+        return _BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 
     def _start_build(self):
         """Start nvcc for this kernel (None when already built)."""
@@ -138,7 +150,17 @@ FUSED_UPDATE_SCATTER = _Kernel(
     "fused_update_scatter",
     [_P, _I64, _I32, _P, _I64, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
      _F32] + [_F32] * 8 + [_P])
-KERNELS = (ROW_GATHER, ROW_SCATTER, FUSED_UPDATE_SCATTER)
+# the row-copy micro-benchmark's kernels (tools/dma_bench.py wraps them)
+DMA_GATHER = _Kernel("dma_gather", [_P, _I64, _I32, _P, _I64, _I64, _I32,
+                                    _I32, _I32, _I32, _I32, _P, _P])
+DMA_GATHER_GROUPED = _Kernel("dma_gather_grouped",
+                             [_P, _I64, _I32, _P, _I64, _I32, _I32, _P, _P])
+DMA_SCATTER_GROUPED = _Kernel("dma_scatter_grouped",
+                              [_P, _I64, _I32, _P, _I64, _P, _I32, _I32, _P])
+DMA_SCATTER = _Kernel("dma_scatter", [_P, _I64, _I32, _P, _I64, _P, _I64,
+                                      _I32, _I32, _I32, _I32, _P])
+KERNELS = (ROW_GATHER, ROW_SCATTER, FUSED_UPDATE_SCATTER, DMA_GATHER,
+           DMA_GATHER_GROUPED, DMA_SCATTER_GROUPED, DMA_SCATTER)
 
 
 def build_kernels(kernels=KERNELS) -> None:

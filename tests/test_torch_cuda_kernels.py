@@ -17,6 +17,7 @@ import torch
 
 from recommenders_addons_tpu_torch.ops import cuda_ops
 from recommenders_addons_tpu_torch.ops import optimizer as opt_lib
+from recommenders_addons_tpu_torch.tools import dma_bench
 
 LANES = 128
 OPTIMIZERS = {"sgd": opt_lib.SGD(0.05), "momentum": opt_lib.Momentum(0.05),
@@ -247,3 +248,70 @@ def test_fused_update_scatter_matches_plain_on_card(cuda, name, pf):
     else:
         assert _ulps_bf16(rows_a[written].view(torch.bfloat16),
                           rows_b[written].view(torch.bfloat16)) <= 1
+
+
+# -- the row-copy micro-benchmark's kernels (tools/dma_bench.py) ------------
+
+DMA_GATHERS = [kw for _, kw in dma_bench.VARIANTS] + [
+    dict(nbuf=8, predicated=True, bitand=False, unroll=4, premul=False),
+    dict(nbuf=6, predicated=True, bitand=False, unroll=1, premul=True)]
+DMA_SCATTERS = [kw for _, kw in dma_bench.SC_VARIANTS] + [
+    dict(nbuf=8, predicated=True, unroll=4, extra_rows=1, premul=False),
+    dict(nbuf=1, predicated=False, unroll=1, extra_rows=0, premul=False)]
+
+
+def test_dma_bench_argument_checks():
+    with pytest.raises(ValueError):  # bitand needs a power of two
+        dma_bench.make_gather(6, False, True, 4)
+    with pytest.raises(ValueError):  # no kernel instantiated for unroll 3
+        dma_bench.make_scatter(8, False, 3)
+    with pytest.raises(ValueError):  # a group past one barrier phase
+        dma_bench.make_gather_grouped(8, 32, ch=64)
+    scatter = dma_bench.make_scatter(8, True, 4, extra_rows=1, ch=2)
+    with pytest.raises(ValueError):  # only the trash row
+        scatter(torch.zeros(2, LANES), torch.arange(1), torch.zeros(2, LANES))
+    with pytest.raises(ValueError):  # not whole rows of ch chunks
+        scatter(torch.zeros(5, LANES), torch.arange(1), torch.zeros(2, LANES))
+    with pytest.raises(ValueError):  # rows of the wrong count
+        scatter(torch.zeros(8, LANES), torch.arange(2), torch.zeros(2, LANES))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch", [1, 2])
+@pytest.mark.parametrize("kw", DMA_GATHERS, ids=str)
+def test_dma_gather_kernels_match_plain_on_card(cuda, ch, kw):
+    cap, n = 1 << 12, 1037  # ragged: a partial tile and group
+    gather = dma_bench.make_variant(kw, ch=ch, scatter=False)
+    t = _table(cap - 1, ch, seed=ch).to(cuda)  # [cap*ch, 128]
+    idx = _idx(cap, n, seed=3).to(cuda)
+    before = gather.kernel.launches
+    got = gather(t, idx)
+    want = gather.plain(t, idx)
+    torch.cuda.synchronize()
+    assert gather.kernel.launches == before + 1
+    assert got.shape == (n * ch, LANES)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError):  # the kernels move 16-byte words
+        gather(torch.empty(cap * ch * LANES + 1, device=cuda)[1:].view(
+            cap * ch, LANES), idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch", [1, 2])
+@pytest.mark.parametrize("kw", DMA_SCATTERS, ids=str)
+def test_dma_scatter_kernels_match_plain_on_card(cuda, ch, kw):
+    cap, n = 1 << 12, 1037
+    scatter = dma_bench.make_variant(kw, ch=ch, scatter=True)
+    t = _table(cap, ch, seed=ch).to(cuda)  # with the trash row
+    idx = torch.randperm(cap, device=cuda)[:n].to(torch.int32)
+    idx[::7], idx[3::11], idx[5::13] = cap, -1, cap + 3
+    rows = _table(n - 1, ch, seed=5).reshape(n * ch, LANES).to(cuda)
+    a, b = t.clone(), t.clone()
+    before = scatter.kernel.launches
+    assert scatter(a, idx, rows) is a  # in place
+    scatter.plain(b, idx, rows)
+    torch.cuda.synchronize()
+    assert scatter.kernel.launches == before + 1
+    live = cap * ch  # never the trash row
+    assert not torch.equal(a[:live], t[:live])
+    assert torch.equal(a[:live].view(torch.int32), b[:live].view(torch.int32))
