@@ -55,14 +55,27 @@ Phases (any failure exits non-zero):
    tool's main() at both shapes (ns/row slopes, ms per 65,536-row call,
    bytes bounds, beside row_gather/row_scatter and index_select /
    index_copy_); then its four kernels' plain versions timed.
+6. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
+   and ab_radix_plan.py). ab_fused against its plain version at the
+   fused-apply probe's full width (2Mi rows of 1 KiB, N = 66,573 unique
+   indices, v >= 0), every mode x sub x nbuf: identity and rawcopy
+   bit-exact, Adam's updated words within 4 ulps, its pad columns +0.0,
+   rows it does not write bit-exact; once more on the probe's own
+   standard-normal inputs (v < 0), where the NaN positions must agree.
+   radix_hist against torch.bincount, bit-exact, on 65,536 bucket ids of
+   the 2Mi table and on a ragged N with negative and >= 1024 ids. Each
+   kernel timed beside its plain version (and torch.bincount); then each
+   tool's main() (ns/row of its five variants; ns/key of its four).
 
-Each main path (serving, DLRM training, table step, dma_bench) is driven
-with the kernels' launch counts set to 0 just before it and read just
-after; a kernel of the path that was not launched fails the run.
+Each main path (serving, DLRM training, table step, dma_bench,
+ab_kernel_cost, ab_radix_plan) is driven with the kernels' launch counts
+set to 0 just before it and read just after; a kernel of the path that
+was not launched fails the run.
 
 Output: the card's name and power limit on a line of its own,
 ``{"serving": ...}``, ``{"training": ...}``, ``{"dma_bench": ...}``,
-``{"kernels": [...]}`` and last ``{"ok": true, "device": {...}}``.
+``{"ab_tools": ...}``, ``{"kernels": [...]}`` and last
+``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 """
@@ -100,11 +113,16 @@ TABLE_N = 65536  # bench.py's larger batch
 # table-step row) and kernel 1's serving shape (4Mi rows of 512 B)
 DMA_SHAPES = ((21, 2), (22, 1))
 DMA_N_CHECK = 65536 + 1037  # ragged: a partial tile and group
+AB_N_CHECK = 65536 + 1037  # ragged: a partial tile and chunk
+AB_STEP = 3.0
 
 _F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per updated column of Adagrad (ops/optimizer.py:
 # g*g, +, sqrt, +, lr*g, /, -), for the fused kernel's operations bound
 _ADAGRAD_FLOPS = 7
+# ... and of the probe's adam_tile: m (2 *, +), v (3 *, +), the value
+# (sqrt, +, *, /, -)
+_ADAM_FLOPS = 12
 
 
 def _card_line() -> str:
@@ -935,6 +953,183 @@ def dma_bench_phase(torch, cuda_ops, dev, gen, card):
     return results, summary
 
 
+def _ab_fused_check(torch, fn, mode, table, want, idx, packed, g):
+    """``fn`` on a copy of ``table`` against ``want`` (its plain version's
+    result): identity and rawcopy rows bit-exact; Adam's NaN positions
+    equal, its other updated words within 4 ulps, its pad columns +0.0;
+    every row it must not write bit-exact. Returns (ulps or max |word
+    difference|, max |difference| of the updated floats)."""
+    a = table.clone()
+    fn(a, idx, packed, g, AB_STEP)
+    torch.cuda.synchronize()
+    w = packed.shape[1]
+    rows = idx.long()
+    ra, rb = a.view(-1, w), want.view(-1, w)
+    wa, wb = ra[rows], rb[rows]
+    if mode == "adam":
+        nan_a, nan_b = torch.isnan(wa), torch.isnan(wb)
+        if not torch.equal(nan_a, nan_b):
+            raise AssertionError("ab_fused adam: NaN positions differ")
+        keep = ~nan_a[:, :192]
+        va, vb = wa[:, :192][keep], wb[:, :192][keep]
+        ulps = _ulps(torch, va, vb, 32)
+        err = float((va - vb).abs().max())
+        if ulps > 4:
+            raise AssertionError(f"ab_fused adam: {ulps} ulps off its plain "
+                                 f"version")
+        if bool(wa[:, 192:].view(torch.int32).any()):
+            raise AssertionError("ab_fused adam: pad columns not +0.0")
+    else:
+        ulps = err = _same_bits(torch, wa, wb)
+        if ulps:
+            raise AssertionError(f"ab_fused {mode}: rows differ")
+    ra[rows] = rb[rows]  # the written rows agree: the rest must be untouched
+    if not torch.equal(a.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"ab_fused {mode}: rows it must not write "
+                             f"differ")
+    del a
+    return ulps, err
+
+
+def ab_tools_phase(torch, cuda_ops, dev, gen, rate, card):
+    """Phase 6: the fused-apply probe's kernel (ab_fused) against its
+    plain version at the probe's full width, every mode and knob; the
+    radix-histogram probe's kernel (radix_hist) against torch.bincount;
+    each timed beside its plain version; then both tools' main(), the
+    paths whose launches are counted."""
+    from recommenders_addons_tpu_torch.ops import hashing
+    from recommenders_addons_tpu_torch.tools import ab_kernel_cost as akc
+    from recommenders_addons_tpu_torch.tools import ab_radix_plan as arp
+
+    # -- ab_fused: 2Mi rows of 1 KiB, unique indices, v >= 0 -------------
+    cap, w, n = akc.CAP, akc.W, AB_N_CHECK
+    table = torch.rand(((cap + 1) * akc.CH, LANES), device=dev,
+                       generator=gen)
+    idx = torch.randperm(cap, device=dev, generator=gen)[:n].to(torch.int32)
+    packed = torch.rand((n, w), device=dev, generator=gen) * 0.95 + 0.05
+    g = torch.randn((n, akc.D), device=dev, generator=gen) * 0.01
+    checks = {}
+    for mode in akc.MODES:
+        want = table.clone()
+        akc.make_fused(mode).plain(want, idx, packed, g, AB_STEP)
+        for sub in akc.SUBS:
+            for nbuf in akc.NBUFS:
+                checks[f"{mode} sub={sub} nbuf={nbuf}"] = _ab_fused_check(
+                    torch, akc.make_fused(mode, sub=sub, nbuf=nbuf), mode,
+                    table, want, idx, packed, g)
+        del want
+    # the probe's own inputs: standard normal, so v < 0 gives NaNs
+    t_nan = torch.randn(table.shape, device=dev, generator=gen)
+    p_nan = torch.randn((n, w), device=dev, generator=gen)
+    g_nan = torch.randn((n, akc.D), device=dev, generator=gen) * 0.01
+    fn = akc.make_fused("adam", sub=128)
+    want = t_nan.clone()
+    fn.plain(want, idx, p_nan, g_nan, AB_STEP)
+    nan_words = int(torch.isnan(want.view(-1, w)[idx.long()]).sum())
+    checks["adam sub=128 nbuf=32, standard normal"] = _ab_fused_check(
+        torch, fn, "adam", t_nan, want, idx, p_nan, g_nan)
+    del t_nan, p_nan, g_nan, want
+    torch.cuda.empty_cache()
+    if not nan_words:
+        raise AssertionError("the standard-normal check made no NaN")
+
+    # timed at the probe's larger batch: adam chunk128, its first variant
+    nt = akc.BATCHES[1]
+    i_t, p_t, g_t = idx[:nt], packed[:nt], g[:nt]
+    f_ms = _time_ms(torch, lambda: fn(table, i_t, p_t, g_t, AB_STEP), 50)
+    f_plain = _time_ms(torch, lambda: fn.plain(table, i_t, p_t, g_t,
+                                               AB_STEP), 10)
+    f_bytes = nt * akc.row_bytes("adam")  # unique rows: each written once
+    f_ops = nt * akc.D * _ADAM_FLOPS
+    del table, idx, packed, g, i_t, p_t, g_t
+    torch.cuda.empty_cache()
+
+    # -- radix_hist: bucket ids of the 2Mi table, and ragged odd ids -----
+    nb = 1 << 15  # Variable(dim=64, init_capacity=2Mi): 64-slot buckets
+    keys = torch.randint(1, 1 << 62, (nt,), device=dev, generator=gen)
+    bids = hashing.bucket_of(keys, nb)
+    odd = torch.randint(-5000, 50000, (70001,), dtype=torch.int32,
+                        device=dev, generator=gen)
+    h_err = 0
+    for b in (bids, odd):
+        got = arp.pallas_hist(b, nb)
+        lib = torch.bincount((b & 1023).long(), minlength=1024)
+        h_err = max(h_err, _same_bits(torch, got, arp.radix_hist_plain(b)),
+                    _same_bits(torch, got, lib.to(torch.int32)))
+    if h_err:
+        raise AssertionError("radix_hist disagrees with torch.bincount")
+    low = (bids & 1023).long()
+    h_ms = _time_ms(torch, lambda: arp.pallas_hist(bids, nb), 100)
+    h_plain = _time_ms(torch, lambda: arp.radix_hist_plain(bids), 20)
+    h_lib = _time_ms(torch, lambda: torch.bincount(low, minlength=1024), 20)
+    h_bytes = nt * 4 + 1024 * 4
+    del keys, odd, low
+
+    # -- the main paths: counters from 0, each tool's main() -------------
+    launches, runs = {}, {}
+    for path, run in (("ab_kernel_cost", akc.main),
+                      ("ab_radix_plan", lambda: arp.main([]))):
+        cuda_ops.reset_launches()
+        runs[path] = run()
+        torch.cuda.synchronize()
+        launches[path] = {k.name: k.launches for k in cuda_ops.KERNELS}
+        torch.cuda.empty_cache()
+    for path, k in (("ab_kernel_cost", "ab_fused"),
+                    ("ab_radix_plan", "radix_hist")):
+        if not launches[path][k]:
+            raise AssertionError(f"{k} not launched on the {path} path: "
+                                 f"{launches[path]}")
+    nums = [e["ns_per_row"] for e in runs["ab_kernel_cost"][
+        "variants"].values()] + list(runs["ab_radix_plan"][
+            "ns_per_key"].values())
+    if len(nums) != 9 or not all(math.isfinite(x) for x in nums):
+        raise AssertionError(f"a probe variant gave no finite number: "
+                             f"{runs}")
+
+    def bound(nbytes, ops):
+        s_bytes, s_ops = nbytes / rate, ops / _F32_FLOPS
+        return max(s_bytes, s_ops) * 1e3, (
+            "bytes" if s_bytes >= s_ops else "operations")
+
+    f_bound, f_by = bound(f_bytes, f_ops)
+    h_bound, h_by = bound(h_bytes, nt)
+    results = [{
+        "name": "ab_fused", "route": "cuda",
+        "source": "recommenders_addons_tpu_torch/csrc/ab_fused.cu",
+        "replaces": "tools/ab_kernel_cost.py:56",
+        "replaces_fn": "make_fused (pallas_call :122)",
+        "variant": "adam chunk128 (sub=128, nbuf=32)",
+        "max_abs_err": max(e for _, e in checks.values()),
+        "max_ulps": {k: u for k, (u, _) in checks.items()},
+        "nan_words_checked": nan_words, "match": True,
+        "ms": f_ms, "kernel_ms": f_ms, "plain_ms": f_plain,
+        "library_ms": None,
+        "library_call": "none (no single PyTorch call fuses a row-wise "
+                        "optimizer with an indexed store)",
+        "bound_ms": f_bound, "bound_by": f_by, "bytes": f_bytes,
+        "ops": f_ops,
+        "shape": f"CAP={cap} ch={akc.CH} W={w} D={akc.D} N={nt}",
+    }, {
+        "name": "radix_hist", "route": "cuda",
+        "source": "recommenders_addons_tpu_torch/csrc/radix_hist.cu",
+        "replaces": "tools/ab_radix_plan.py:140",
+        "replaces_fn": "pallas_hist / _hist_kernel (kernel :114, "
+                       "pallas_call :144)",
+        "max_abs_err": h_err, "match": True,
+        "ms": h_ms, "kernel_ms": h_ms, "plain_ms": h_plain,
+        "library_ms": h_lib,
+        "library_call": "torch.bincount (on the masked ids)",
+        "bound_ms": h_bound, "bound_by": h_by, "bytes": h_bytes, "ops": nt,
+        "shape": f"N={nt} bucket ids of {nb} buckets, 1024 bins",
+    }]
+    summary = {"card": card, "fused_check_n": n,
+               "fused_checks": {k: {"ulps_or_bits": u, "max_abs_err": e}
+                                for k, (u, e) in checks.items()},
+               "hist_check_n": [nt, 70001], "launches": launches,
+               "runs": runs}
+    return results, summary
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -971,10 +1166,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dma_kernels, dma = dma_bench_phase(torch, cuda_ops, dev, gen, card)
     kernels += dma_kernels
+    torch.cuda.empty_cache()
+    ab_kernels, ab = ab_tools_phase(torch, cuda_ops, dev, gen, rate, card)
+    kernels += ab_kernels
     paths = {"serving": serving["launches"],
              "dlrm_training": training["launches"],
              "table_step": table_step["launches"],
-             "dma_bench": dma["launches"]}
+             "dma_bench": dma["launches"], **ab["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -988,6 +1186,7 @@ def main(argv=None) -> int:
     print(json.dumps({"training": dict(training, table_step=table_step,
                                        card=card)}))
     print(json.dumps({"dma_bench": dma}))
+    print(json.dumps({"ab_tools": ab}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

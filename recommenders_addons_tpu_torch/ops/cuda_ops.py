@@ -19,12 +19,16 @@ The registry also holds the four kernels of the row-copy
 micro-benchmark (``DMA_GATHER``, ``DMA_GATHER_GROUPED``,
 ``DMA_SCATTER_GROUPED``, ``DMA_SCATTER``: Hopper bulk copies counted on
 mbarriers or bulk groups, sharing ``csrc/bulk_copy.cuh``), whose wrappers
-live in ``tools/dma_bench.py``, so one build and one launch count cover
+live in ``tools/dma_bench.py``, and the two probes' kernels: ``AB_FUSED``
+(``csrc/ab_fused.cu``, the fused-apply cost probe's Adam / identity /
+raw-copy row scatter, wrapped by ``tools/ab_kernel_cost.py``) and
+``RADIX_HIST`` (``csrc/radix_hist.cu``, a 1,024-bin histogram, wrapped by
+``tools/ab_radix_plan.py``), so one build and one launch count cover
 every kernel of the port.
 
-All are indexed data movement (the fused apply with a few flops per
-word), so all are bound by bytes: the sources say what their design does
-about that. Tables keep the JAX
+All are indexed data movement (the fused applies with a few flops per
+word, the histogram with one atomic add per key), so all are bound by
+bytes: the sources say what their design does about that. Tables keep the JAX
 package's physical layout, a ``[(C+1)*ch, 128]`` container of 32-bit words
 with a trash row block at logical index ``C``; the kernels move the words
 through an int32 view, so f16/bf16 pairs whose bits read as NaNs pass
@@ -159,8 +163,13 @@ DMA_SCATTER_GROUPED = _Kernel("dma_scatter_grouped",
                               [_P, _I64, _I32, _P, _I64, _P, _I32, _I32, _P])
 DMA_SCATTER = _Kernel("dma_scatter", [_P, _I64, _I32, _P, _I64, _P, _I64,
                                       _I32, _I32, _I32, _I32, _P])
+# the probes' kernels (tools/ab_kernel_cost.py, tools/ab_radix_plan.py)
+AB_FUSED = _Kernel("ab_fused", [_P, _I64, _P, _I64, _P, _P, _F32, _I32,
+                                _I32, _I32, _P])
+RADIX_HIST = _Kernel("radix_hist", [_P, _I64, _P, _P])
 KERNELS = (ROW_GATHER, ROW_SCATTER, FUSED_UPDATE_SCATTER, DMA_GATHER,
-           DMA_GATHER_GROUPED, DMA_SCATTER_GROUPED, DMA_SCATTER)
+           DMA_GATHER_GROUPED, DMA_SCATTER_GROUPED, DMA_SCATTER, AB_FUSED,
+           RADIX_HIST)
 
 
 def build_kernels(kernels=KERNELS) -> None:

@@ -1,2 +1,17 @@
 """The port's kernel measurement tools, each named after its counterpart
-in the repository's ``tools/`` (the JAX package's tools)."""
+in the repository's ``tools/`` (the JAX package's tools):
+``dma_bench`` (row copies), ``ab_kernel_cost`` (the fused-apply cost
+probe) and ``ab_radix_plan`` (the radix-histogram probe). Each runs as
+``python -m recommenders_addons_tpu_torch.tools.<name>``; the modules
+load on first access, so running one that way does not import it
+twice."""
+
+import importlib
+
+__all__ = ["ab_kernel_cost", "ab_radix_plan", "dma_bench"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -9,7 +9,10 @@ row gather and scatter the tables hold random 32-bit words (NaN bit
 patterns included) and the kernels only move them, so every comparison is
 bit-exact (on int32 views). The fused optimizer-scatter computes: rows it
 does not write stay bit-exact, and updated f32 words agree within 4 ulps
-(powf and the divisions round independently), bf16 halves within 1 ulp."""
+(powf and the divisions round independently), bf16 halves within 1 ulp.
+The fused-apply probe's kernel (tools/ab_kernel_cost.py) follows the same
+rule, its identity and raw-copy modes bit-exact; the radix probe's
+histogram (tools/ab_radix_plan.py) counts integers, so it is exact."""
 
 import numpy as np
 import pytest
@@ -17,7 +20,11 @@ import torch
 
 from recommenders_addons_tpu_torch.ops import cuda_ops
 from recommenders_addons_tpu_torch.ops import optimizer as opt_lib
-from recommenders_addons_tpu_torch.tools import dma_bench
+from recommenders_addons_tpu_torch.tools import (
+    ab_kernel_cost,
+    ab_radix_plan,
+    dma_bench,
+)
 
 LANES = 128
 OPTIMIZERS = {"sgd": opt_lib.SGD(0.05), "momentum": opt_lib.Momentum(0.05),
@@ -88,6 +95,9 @@ def test_cpu_tensors_never_launch_a_kernel():
     cuda_ops.fused_update_scatter(
         t, 1, torch.arange(4), torch.zeros(4, LANES), torch.zeros(4, 8),
         opt_lib.SGD().fused_rule(), dim=8, slot_names=(), cap=8)
+    ab_kernel_cost.make_fused("adam")(_table(8, 2), torch.arange(4),
+                                      torch.rand(4, 256), torch.rand(4, 64), 0)
+    ab_radix_plan.pallas_hist(torch.arange(-9, 9), 0)
     assert [k.launches for k in cuda_ops.KERNELS] == [0] * len(
         cuda_ops.KERNELS)
 
@@ -315,3 +325,61 @@ def test_dma_scatter_kernels_match_plain_on_card(cuda, ch, kw):
     live = cap * ch  # never the trash row
     assert not torch.equal(a[:live], t[:live])
     assert torch.equal(a[:live].view(torch.int32), b[:live].view(torch.int32))
+
+
+# -- the probes' kernels (tools/ab_kernel_cost.py, tools/ab_radix_plan.py) --
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbuf", ab_kernel_cost.NBUFS)
+@pytest.mark.parametrize("sub", ab_kernel_cost.SUBS)
+@pytest.mark.parametrize("mode", list(ab_kernel_cost.MODES))
+def test_ab_fused_matches_plain_on_card(cuda, mode, sub, nbuf):
+    """Every mode x sub x nbuf at a ragged N (a partial tile and chunk),
+    in place, sentinels on the trash row, negative and past-the-end
+    indices skipped."""
+    cap, n = 1 << 12, 1037
+    rng = np.random.default_rng(sub + nbuf)
+    t = _table(cap, 2, seed=7).to(cuda)  # random bits, with the trash row
+    packed = torch.from_numpy(rng.uniform(0.05, 1.0, size=(n, 256)).astype(
+        np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32)).to(cuda)
+    idx = torch.randperm(cap, device=cuda)[:n].to(torch.int32)
+    idx[::7], idx[3::11], idx[5::13] = cap, -1, cap + 3
+    fn = ab_kernel_cost.make_fused(mode, sub=sub, nbuf=nbuf)
+    a, b = t.clone(), t.clone()
+    before = fn.kernel.launches
+    assert fn(a, idx, packed, g, 3) is a  # in place
+    fn.plain(b, idx, packed, g, 3)
+    torch.cuda.synchronize()
+    assert fn.kernel.launches == before + 1
+    live = cap * 2  # never the trash row
+    ra, rb = a[:live].view(cap, 256), b[:live].view(cap, 256)
+    written = torch.zeros(cap, dtype=torch.bool, device=cuda)
+    written[idx[(idx >= 0) & (idx < cap)].long()] = True
+    assert torch.equal(ra[~written].view(torch.int32),
+                       rb[~written].view(torch.int32))
+    wa, wb = ra[written], rb[written]
+    assert not torch.equal(wa, t[:live].view(cap, 256)[written])
+    if mode == "adam":
+        assert _ulps32(wa[:, :192], wb[:, :192]) <= 4
+        assert not wa[:, 192:].view(torch.int32).any()  # +0.0 exactly
+    else:
+        assert torch.equal(wa.view(torch.int32), wb.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_radix_hist_matches_bincount_on_card(cuda):
+    bids = torch.randint(-5000, 50000, (70001,), dtype=torch.int32,
+                         device=cuda)  # ragged, negatives, ids >= 1024
+    before = cuda_ops.RADIX_HIST.launches
+    got = ab_radix_plan.pallas_hist(bids, 1 << 15)
+    want = ab_radix_plan.radix_hist_plain(bids)
+    torch.cuda.synchronize()
+    assert cuda_ops.RADIX_HIST.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(got.long(), torch.bincount((bids & 1023).long(),
+                                                  minlength=1024))
+    # int64 ids are cut to int32 first, as the reference's astype
+    assert torch.equal(ab_radix_plan.pallas_hist(
+        bids.to(torch.int64) + (1 << 33), 0), got)
