@@ -51,10 +51,15 @@ Phases (any failure exits non-zero):
    default) and 4Mi rows of 1: every variant of its two lists, a
    predicated gather (row and premultiplied predicate) and a predicated
    scatter, each bit-exact against its plain version on random words at
-   N = 66,573 with sentinel, negative and past-the-end indices; then the
-   tool's main() at both shapes (ns/row slopes, ms per 65,536-row call,
-   bytes bounds, beside row_gather/row_scatter and index_select /
-   index_copy_); then its four kernels' plain versions timed.
+   N = 66,573 with sentinel, negative and past-the-end indices; the
+   gathers also where their pipelines turn: rows of 128 KiB (ch = 256, a
+   64-row table, N = 1,037 and 2,051) and N = 2^18 + 3 (ch = 2), where
+   every block wraps its ring of stages many times; then the tool's
+   main() at both shapes (ns/row slopes, ms per 65,536-row call, bytes
+   bounds, beside row_gather/row_scatter and index_select /
+   index_copy_); then its four kernels' plain versions timed, and the two
+   gathers' ms over their bound and over index_select, with a
+   torch.profiler trace of 10 calls each (device busy share, kernel ms).
 6. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
    and ab_radix_plan.py). ab_fused against its plain version at the
    fused-apply probe's full width (2Mi rows of 1 KiB, N = 66,573 unique
@@ -113,6 +118,9 @@ TABLE_N = 65536  # bench.py's larger batch
 # table-step row) and kernel 1's serving shape (4Mi rows of 512 B)
 DMA_SHAPES = ((21, 2), (22, 1))
 DMA_N_CHECK = 65536 + 1037  # ragged: a partial tile and group
+# the gathers' pipeline turns: (table rows, ch, N)
+DMA_PIPE_CHECKS = ((64, 256, 1037), (64, 256, (1 << 11) + 3),
+                   (1 << 12, 2, (1 << 18) + 3))
 AB_N_CHECK = 65536 + 1037  # ragged: a partial tile and chunk
 AB_STEP = 3.0
 
@@ -883,6 +891,23 @@ def dma_bench_phase(torch, cuda_ops, dev, gen, card):
         del trash, idx, sidx, rows
         torch.cuda.empty_cache()
         checked[f"cap={cap} ch={ch}"] = len(gathers) + len(scatters)
+    # the pipelines' turns (gathers only): rows of 128 KiB, one a stage,
+    # on a table of 64 rows; and N = 2^18 + 3, where every block wraps
+    # its ring of stages many times. Their own generator leaves the later
+    # phases' inputs as they were.
+    pipe_gen = torch.Generator(device=dev).manual_seed(gen.initial_seed() + 1)
+    for rows, ch, n in DMA_PIPE_CHECKS:
+        table, idx, _, _ = _dma_inputs(torch, dev, pipe_gen, rows, ch, n)
+        idx[2::17] = (1 << 31) - 5  # premultiplied, these wrap int32
+        for kw in gathers:
+            if kw.get("grouped") and kw["group"] * ch * 512 >= 1 << 20:
+                kw = dict(kw, group=(1 << 19) // (ch * 512))  # 4 rows
+            fn = dma_bench.make_variant(kw, ch=ch, scatter=False)
+            e = _same_bits(torch, fn(table, idx), fn.plain(table, idx))
+            errs[fn.kernel.name] = max(errs[fn.kernel.name], e)
+        del table, idx
+        torch.cuda.empty_cache()
+        checked[f"rows={rows} ch={ch} N={n}"] = len(gathers)
     bad = [k for k, e in errs.items() if e]
     if bad:
         raise AssertionError(f"dma_bench kernels disagree with their plain "
@@ -945,6 +970,11 @@ def dma_bench_phase(torch, cuda_ops, dev, gen, card):
             "bound_by": "bytes", "bytes": e["bytes"],
             "shape": f"CAP={cap} ch={ch} N={dma_bench.BATCHES[1]}",
         })
+        if not scatter:  # the gathers redesigned as pipelines
+            busy, top = _device_profile(torch, lambda: fn(table, idx))
+            results[-1].update(x_bound=e["ms"] / e["bound_ms"],
+                               x_library=e["ms"] / results[-1]["library_ms"],
+                               trace={"busy": busy, "top_ms": top})
     del table, trash, idx, sidx, rows
     torch.cuda.empty_cache()
     summary = {"card": card, "checked_variants": checked,

@@ -11,7 +11,9 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
+#include <vector>
 
 #include <cuda_runtime.h>
 
@@ -23,13 +25,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Initialise `count` mbarriers expecting one arrival per phase, and make
-// the initialisation visible to the async proxy. Called by one thread;
-// the caller then syncs the block.
-__device__ __forceinline__ void init_barriers(uint64_t* bars, int count) {
+// Initialise `count` mbarriers expecting `arrivals` arrivals per phase,
+// and make the initialisation visible to the async proxy. Called by one
+// thread; the caller then syncs the block.
+__device__ __forceinline__ void init_barriers(uint64_t* bars, int count,
+                                              int arrivals = 1) {
   for (int i = 0; i < count; ++i) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                     smem_addr(bars + i))
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                     smem_addr(bars + i)),
+                 "r"(arrivals)
                  : "memory");
   }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -77,6 +81,25 @@ __device__ __forceinline__ void load_async(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// As load_async, with an L2 policy from evict_first_policy(): the row is
+// read once, so its lines go first.
+__device__ __forceinline__ void load_async(void* dst, const void* src,
+                                           uint32_t bytes, uint64_t* bar,
+                                           uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
 }
 
 // Copy `bytes` from shared `src` to global `dst` in the open bulk group.
@@ -220,6 +243,180 @@ inline int launch(Kernel kernel, int64_t n, int ch, void* stream,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles = (n + tile_rows(ch) - 1) / tile_rows(ch);
   kernel<<<static_cast<unsigned>(tiles), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Persistent pipelines (dma_gather.cu, dma_gather_grouped.cu)
+// ---------------------------------------------------------------------------
+//
+// A persistent block walks its share of the rows (Share) in stages of R
+// rows through a ring of S stages in shared memory. One producer warp
+// issues a stage's bulk copies, its lanes one row each; kPipeConsumers
+// consumer warps write the stage out with coalesced 16-byte stores and
+// then arrive on the stage's "empty" barrier, which the producer waits on
+// before it refills the slot. Stage k uses slot s = k % S for the
+// (k / S)-th time, so every per-stage barrier completes one phase per use
+// and its parity is (k / S) & 1. Only a block's last stage may be short.
+
+constexpr int kWarp = 32;
+constexpr int kPipeConsumers = 4;
+constexpr int kPipeThreads = kWarp * (1 + kPipeConsumers);
+constexpr int kSmemMax = 232448;  // a block's shared memory on Hopper
+
+struct Ring {
+  int stages;  // S, slots in the ring
+  int rows;    // R, rows per stage
+};
+
+// Dynamic shared memory of a ring beside `nbars` barriers.
+inline size_t ring_smem(Ring r, int ch, int nbars) {
+  return static_cast<size_t>(r.stages) * r.rows * ch * kRowBytes +
+         static_cast<size_t>(nbars) * 8;
+}
+
+// The ring for rows of `ch` chunks: stages of max(1, stage_bytes / row)
+// rows, `stages` of them or as many as fit in a block's shared memory
+// beside nbars(ring) barriers (a 128 KiB row leaves room for one).
+template <typename Bars>
+inline Ring make_ring(int ch, int stage_bytes, int stages, Bars nbars) {
+  const int row = ch * kRowBytes;
+  Ring r{stages, stage_bytes / row > 1 ? stage_bytes / row : 1};
+  while (r.stages > 1 && ring_smem(r, ch, nbars(r)) > kSmemMax) --r.stages;
+  return r;
+}
+
+// A block's rows, in stages of R: units of R rows dealt round-robin
+// (block b takes units b, b + G, ... of the first q whole rounds, G =
+// gridDim.x), so that at any time the blocks write neighbouring units;
+// then the rows left after the whole rounds split evenly over the blocks
+// as one last, shorter stage each, so that every block finishes at about
+// the same time.
+struct Share {
+  int rows;     // R
+  int rounds;   // q, whole rounds of G units
+  int64_t tail0;  // the last stage's first row
+  int tail;       // and its rows (0: no last stage)
+
+  __device__ __forceinline__ Share(int64_t n, int r) : rows(r) {
+    const int64_t round = static_cast<int64_t>(gridDim.x) * r;
+    rounds = static_cast<int>(n / round);
+    const int64_t whole = rounds * round, left = n - whole;
+    tail0 = whole + left * blockIdx.x / gridDim.x;
+    tail = static_cast<int>(whole + left * (blockIdx.x + 1) / gridDim.x -
+                            tail0);
+  }
+
+  __device__ __forceinline__ int stages() const {
+    return rounds + (tail > 0);
+  }
+  __device__ __forceinline__ int total() const {
+    return rounds * rows + tail;
+  }
+  __device__ __forceinline__ int64_t row0(int k) const {
+    return k < rounds
+               ? (static_cast<int64_t>(k) * gridDim.x + blockIdx.x) * rows
+               : tail0;
+  }
+  __device__ __forceinline__ int count(int k) const {
+    return k < rounds ? rows : tail;
+  }
+
+  // A producer lane's index in the batch of `batch` rows at row i of
+  // stage k (lane l reads row i + l; 0 past the stage or the share),
+  // loaded one batch ahead of its use.
+  __device__ __forceinline__ int32_t index(const int32_t* __restrict__ idx,
+                                           int k, int i, int batch) const {
+    const int lane = threadIdx.x % kWarp;
+    return lane < batch && k < stages() && i + lane < count(k)
+               ? idx[row0(k) + i + lane]
+               : 0;
+  }
+};
+
+// Consumer-wide (the kPipeConsumers warps after the producer): a stage's
+// `rows` staged rows of `ch` chunks go out to `dst`, where they are
+// contiguous, as coalesced 16-byte streaming stores (evict-first: written
+// once, never read back here), each thread loading four words before it
+// stores them; a row for which zero_row(i) holds is written as zeros.
+template <typename ZeroRow>
+__device__ __forceinline__ void put_stage(int4* __restrict__ dst,
+                                          const int4* __restrict__ src,
+                                          int rows, int ch,
+                                          ZeroRow zero_row) {
+  constexpr int kThreads = kWarp * kPipeConsumers, kUnroll = 4;
+  const int per_row = ch * (kRowBytes / 16);
+  const int total = rows * per_row;
+  for (int v0 = threadIdx.x - kWarp; v0 < total;
+       v0 += kThreads * kUnroll) {
+    int4 w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int v = v0 + u * kThreads;
+      if (v < total) w[u] = src[v];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int v = v0 + u * kThreads;
+      if (v >= total) continue;
+      if (zero_row(v / per_row)) w[u] = make_int4(0, 0, 0, 0);
+      __stcs(dst + v, w[u]);
+    }
+  }
+}
+
+// Blocks of `kernel` at `smem` bytes resident on one SM, times the SMs:
+// queried once per kernel, device and size, then cached (0 blocks is
+// an error: the kernel does not fit).
+inline int persistent_blocks(const void* kernel, size_t smem, int max_per_sm,
+                             int* blocks) {
+  struct Entry {
+    const void* kernel;
+    int device;
+    size_t smem;
+    int blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache) {
+    if (e.kernel == kernel && e.device == dev && e.smem == smem) {
+      *blocks = e.blocks;
+      return 0;
+    }
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemMax);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kPipeThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *blocks = (per_sm < max_per_sm ? per_sm : max_per_sm) * sms;
+  cache.push_back(Entry{kernel, dev, smem, *blocks});
+  return 0;
+}
+
+// Launch `kernel` persistently on `stream`: the resident blocks (at most
+// `max_per_sm` per SM), but no more than `units` units of work; returns
+// the CUDA error (0 on success).
+template <typename Kernel, typename... Args>
+inline int launch_persistent(Kernel kernel, size_t smem, int max_per_sm,
+                             int64_t units, void* stream, Args... args) {
+  int blocks = 0;
+  const int err = persistent_blocks(reinterpret_cast<const void*>(kernel),
+                                    smem, max_per_sm, &blocks);
+  if (err) return err;
+  const int64_t grid = units < blocks ? units : blocks;
+  kernel<<<static_cast<unsigned>(grid), kPipeThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }

@@ -199,7 +199,9 @@ def _with(fn, plain, kernel):
 def _gathering(kernel, plain, ch, extra):
     """A gather callable: the kernel on CUDA tensors, the plain version on
     CPU tensors. ``extra(rows)`` checks the table's row count and returns
-    the kernel's arguments after the index count."""
+    the kernel's arguments after the index count. It launches the kernel
+    its ``.kernel`` names at call time (``tools/gather_sweep.py`` sets a
+    rebuilt copy there)."""
 
     def gather(table2d, idx):
         t32 = _table_words(table2d, ch)
@@ -212,8 +214,9 @@ def _gathering(kernel, plain, ch, extra):
                           device=t32.device)
         cuda_ops._check_aligned(t32, out)
         if n:
-            kernel.launch(t32.device, t32.data_ptr(), t32.shape[0], ch,
-                          idx.data_ptr(), n, *args, out.data_ptr())
+            gather.kernel.launch(t32.device, t32.data_ptr(), t32.shape[0],
+                                 ch, idx.data_ptr(), n, *args,
+                                 out.data_ptr())
         return out.view(table2d.dtype)
 
     return _with(gather, plain, kernel)

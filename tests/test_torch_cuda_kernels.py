@@ -14,6 +14,8 @@ The fused-apply probe's kernel (tools/ab_kernel_cost.py) follows the same
 rule, its identity and raw-copy modes bit-exact; the radix probe's
 histogram (tools/ab_radix_plan.py) counts integers, so it is exact."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from recommenders_addons_tpu_torch.tools import (
     ab_kernel_cost,
     ab_radix_plan,
     dma_bench,
+    gather_sweep,
 )
 
 LANES = 128
@@ -305,6 +308,86 @@ def test_dma_gather_kernels_match_plain_on_card(cuda, ch, kw):
         gather(torch.empty(cap * ch * LANES + 1, device=cuda)[1:].view(
             cap * ch, LANES), idx)
 
+
+
+def _stage_rows(kernel, ch):
+    """R, the rows of one pipeline stage in ``kernel``'s source at ``ch``
+    chunks a row (at least one)."""
+    kib = int(re.search(r"constexpr int kStageBytes = (\d+) \* 1024;",
+                        kernel.source.read_text()).group(1))
+    return max(1, kib * 1024 // (ch * 512))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_kind", ["1", "R-1", "1037", "ring wrap"])
+@pytest.mark.parametrize("ch", [1, 2, 4, 256])
+@pytest.mark.parametrize("kw", DMA_GATHERS, ids=str)
+def test_dma_gather_pipelines_match_plain_on_card(cuda, kw, ch, n_kind):
+    """Both gathers' persistent pipelines, every variant, bit-exact against
+    the plain version: one row; one row short of a stage (R - 1, at least
+    1); a ragged N; and N = 2^18 + 3, where every block wraps its ring of
+    stages many times (2^11 + 3 at ch = 256: rows of 128 KiB, one a
+    stage). ch = 256 runs on a table of 64 rows, its grouped variants with
+    the largest group one barrier phase takes (4 rows). The indices mix in
+    sentinels, negatives, past-the-end rows and indices whose premultiplied
+    value wraps int32."""
+    if kw.get("grouped") and kw["group"] * ch * 512 >= 1 << 20:
+        kw = dict(kw, group=(1 << 19) // (ch * 512))
+    gather = dma_bench.make_variant(kw, ch=ch, scatter=False)
+    rows = 64 if ch == 256 else 1 << 12
+    n = {"1": 1, "R-1": max(1, _stage_rows(gather.kernel, ch) - 1),
+         "1037": 1037,
+         "ring wrap": (1 << 11 if ch == 256 else 1 << 18) + 3}[n_kind]
+    t = _table(rows - 1, ch, seed=ch).to(cuda)  # [rows*ch, 128]
+    idx = _idx(rows, n, seed=n)
+    idx[2::17] = (1 << 31) - 5
+    idx[4::19] = -(1 << 30) - 3
+    idx = idx.to(cuda)
+    before = gather.kernel.launches
+    got = gather(t, idx)
+    want = gather.plain(t, idx)
+    torch.cuda.synchronize()
+    assert gather.kernel.launches == before + 1
+    assert got.shape == (n * ch, LANES)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_gather_sweep_rewrites_the_ring_constants(tmp_path, monkeypatch):
+    """The sweep's copies of both gathers carry the geometry it asks for
+    (each constant found once) and build under their own library names;
+    its default grid keeps only rings that fit beside each other."""
+    monkeypatch.setattr(gather_sweep, "_SWEEP_DIR", tmp_path)
+    copies = gather_sweep._copy("g", cuda_ops._PKG / "csrc", {
+        "kStageBytes": "16 * 1024", "kStages": 5, "kBlocksPerSm": 1})
+    assert sorted(copies) == ["dma_gather", "dma_gather_grouped"]
+    for name, k in copies.items():
+        text = k.source.read_text()
+        for line in ("constexpr int kStageBytes = 16 * 1024;",
+                     "constexpr int kStages = 5;",
+                     "constexpr int kBlocksPerSm = 1;"):
+            assert line in text, (name, line)
+        assert (k.source.parent / "bulk_copy.cuh").is_file()
+        assert k.library.name != getattr(
+            cuda_ops, name.upper()).library.name
+    grid = gather_sweep.default_geometries()
+    assert (32, 2, 3) in grid and (32, 8, 1) not in grid
+    assert all(kib * s * b < 227 for kib, s, b in grid)
+
+
+def test_gather_sweep_needs_a_card():
+    with pytest.raises(RuntimeError):
+        gather_sweep.main([], device="cpu")
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", DMA_GATHERS, ids=str)
+def test_dma_gather_empty_batch_launches_nothing(cuda, kw):
+    gather = dma_bench.make_variant(kw, ch=2, scatter=False)
+    t = _table(63, 2).to(cuda)
+    before = gather.kernel.launches
+    got = gather(t, torch.empty(0, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (0, LANES)
+    assert gather.kernel.launches == before
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("ch", [1, 2])
