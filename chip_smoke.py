@@ -18,13 +18,22 @@ Phases (any failure exits non-zero):
    bit-exact on int32 views. fused_update_scatter for all seven named
    optimizers on f32 tables and for Adam and Adagrad on bf16 tables (with
    a foreign slot column passed through, sentinel, negative and
-   past-the-end indices), then at its two main-path shapes: DLRM's
-   (Adagrad, 4Mi rows, ch = 1, N = 106,496) and the table step's (Adam,
-   2Mi rows, ch = 2, N = 65,536). Rows it does not write must be
+   past-the-end indices), then at the three inputs of
+   tools/fused_sweep.py: DLRM's shape (Adagrad, 4Mi rows, ch = 1,
+   N = 106,496), the table step's (Adam, 2Mi rows, ch = 2, N = 65,536)
+   and the main path's own operands (one full-width DLRM step's call,
+   about two thirds of its rows bound for the trash row, which the
+   kernel leaves alone). Rows [0, C) it does not write must be
    bit-exact, updated f32 words within 4 ulps and bf16 halves within 1.
    Each kernel is timed (CUDA events) beside its plain version, one
    PyTorch library call computing the same function where there is one,
    and its bound: the bytes it must move over the card's memory rate.
+   fused_update_scatter's row also gives the table step's and the main
+   path's times (``table_step_ms``, ``main_path_ms``), their bounds (as
+   its own: the rows with a valid index, each reading its value and slot
+   words and grads and writing its whole row, plus 4 B an index), the
+   bytes the kernel moves (``*moved_bytes``) and the main path's share
+   of trash rows (``main_path_trash_share``).
 2. The serving slice: a Variable(dim=64, init_capacity=1<<22) filled with
    26 features x 80,658 feature-tagged ids (the DLRM shared table's
    layout, models/dlrm.py), export_compressed to f16, serve_directory
@@ -436,91 +445,25 @@ def serving_phase(torch, cuda_ops, dev, gen, seed):
     }
 
 
-def _ulps(torch, a, b, bits: int) -> int:
-    """Max distance in ulps between two float tensors (f32 or bf16 bit
-    patterns ordered across the sign)."""
-    it, mag = ((torch.int32, 0x7FFFFFFF) if bits == 32
-               else (torch.int16, 0x7FFF))
-
-    def ordered(t):
-        i = t.contiguous().view(it).to(torch.int64)
-        return torch.where(i < 0, -(i & mag), i)
-
-    if a.numel() == 0:
-        return 0
-    return int((ordered(a) - ordered(b)).abs().max())
-
-
-def _fused_inputs(torch, dev, gen, opt_slots, pf, cap, n, dim, foreign):
-    """Table, packed rows, grads and indices for one fused-kernel check:
-    values uniform in [0.05, 1) (positive accumulators), optionally a
-    foreign slot column the kernel must pass through; indices unique
-    slots with every 97th the sentinel, and some negative or past the
-    end."""
-    names = tuple(sorted(set(opt_slots) | ({"zz"} if foreign else set())))
-    vdt = torch.float32 if pf == 1 else torch.bfloat16
-    w = -(-dim * (1 + len(names)) // (LANES * pf)) * LANES * pf
-    ch = w // (LANES * pf)
-    wc = ch * LANES
-
-    def rows(k):
-        x = torch.rand((k, w), device=dev, generator=gen) * 0.95 + 0.05
-        return x.to(vdt).view(torch.float32).reshape(k, wc)
-
-    table = rows(cap + 1).reshape((cap + 1) * ch, LANES)
-    packed = rows(n)
-    grads = torch.randn((n, dim), device=dev, generator=gen)
-    idx = torch.randperm(cap, device=dev, generator=gen)[:n].to(torch.int32)
-    idx[::97] = cap
-    idx[5::211] = -1
-    idx[7::223] = cap + 5
-    return names, ch, table, packed, grads, idx
-
-
-def _fused_check(torch, cuda_ops, opt, pf, cap, n, dim, gen, dev,
-                 foreign=True, step=4.0, keep=False):
-    """fused_update_scatter against its plain version; returns (ulps,
-    max |difference| of written words as floats, inputs if ``keep``)."""
-    rule = opt.fused_rule()
-    names, ch, table, packed, grads, idx = _fused_inputs(
-        torch, dev, gen, rule.slots, pf, cap, n, dim, foreign)
-    a = table.clone()
-    cuda_ops.fused_update_scatter(a, ch, idx, packed, grads, rule, dim=dim,
-                                  slot_names=names, cap=cap, step=step,
-                                  pf=pf)
-    cuda_ops.fused_update_scatter_plain(table, ch, idx, packed, grads, rule,
-                                        dim=dim, slot_names=names, cap=cap,
-                                        step=step, pf=pf)
-    torch.cuda.synchronize()
-    wc = ch * LANES
-    ra, rb = a[:cap * ch].view(cap, wc), table[:cap * ch].view(cap, wc)
-    written = torch.zeros(cap, dtype=torch.bool, device=dev)
-    written[idx[(idx >= 0) & (idx < cap)].long()] = True
-    if not torch.equal(ra[~written].view(torch.int32),
-                       rb[~written].view(torch.int32)):
-        raise AssertionError(f"{rule.kind} pf={pf}: rows it must not write "
-                             f"differ")
-    wa, wb = ra[written], rb[written]
-    if pf == 1:
-        ulps = _ulps(torch, wa, wb, 32)
-        err = float((wa - wb).abs().max())
-    else:
-        ha, hb = wa.view(torch.bfloat16), wb.view(torch.bfloat16)
-        ulps = _ulps(torch, ha, hb, 16)
-        err = float((ha.float() - hb.float()).abs().max())
-    if ulps > (4 if pf == 1 else 1):
-        raise AssertionError(f"{rule.kind} pf={pf}: {ulps} ulps off its "
-                             f"plain version")
-    kept = (table, packed, grads, idx, names, ch) if keep else None
-    del a
-    return ulps, err, kept
-
-
-def fused_kernel_phase(torch, cuda_ops, dev, gen, rate):
+def fused_kernel_phase(torch, cuda_ops, dev, gen, rate, seed):
     """fused_update_scatter against its plain version: every named
-    optimizer (f32), Adam and Adagrad (bf16), then the two main-path
-    shapes, which are also timed."""
+    optimizer (f32), Adam and Adagrad (bf16), then the three inputs of
+    tools/fused_sweep.py, which are also timed: (a) DLRM's shape, (b) the
+    table step's, (c) the operands one full-width DLRM step hands the
+    kernel (about two thirds of its rows bound for the trash row)."""
     from recommenders_addons_tpu_torch.ops import optimizer as opt_lib
+    from recommenders_addons_tpu_torch.tools import fused_sweep as fs
+
+    def check(inp, what):
+        """The kernel on a copy of the table, the plain version on the
+        table itself; returns (ulps, max |difference|)."""
+        got = inp.table.clone()
+        inp.call(got)
+        inp.plain(inp.table)
+        torch.cuda.synchronize()
+        out = fs.compare(got, inp.table, inp, what)
+        del got
+        return out
 
     opts = {"sgd": opt_lib.SGD(0.05), "momentum": opt_lib.Momentum(0.05),
             "adagrad": opt_lib.Adagrad(0.05), "adam": opt_lib.Adam(0.05),
@@ -529,46 +472,43 @@ def fused_kernel_phase(torch, cuda_ops, dev, gen, rate):
                                  l2_regularization_strength=0.01)}
     checks = {}
     for name, opt in opts.items():
-        checks[f"{name}_f32"] = _fused_check(
-            torch, cuda_ops, opt, 1, 1 << 20, N_GATHER, DIM, gen, dev)[:2]
+        checks[f"{name}_f32"] = check(fs.fused_inputs(
+            dev, gen, opt.fused_rule(), 1, 1 << 20, N_GATHER), name)
     for name in ("adam", "adagrad"):
-        checks[f"{name}_bf16"] = _fused_check(
-            torch, cuda_ops, opts[name], 2, 1 << 20, N_GATHER, DIM, gen,
-            dev)[:2]
+        checks[f"{name}_bf16"] = check(fs.fused_inputs(
+            dev, gen, opts[name].fused_rule(), 2, 1 << 20, N_GATHER),
+            f"{name} bf16")
     torch.cuda.empty_cache()
 
-    # the table step's shape: Adam, 2Mi rows, ch = 2, N = 65,536
-    adam = opt_lib.Adam(0.001)
-    ulps, err, (table, packed, grads, idx, names, ch) = _fused_check(
-        torch, cuda_ops, adam, 1, TABLE_CAP, TABLE_N, DIM, gen, dev,
-        foreign=False, keep=True)
-    checks["adam_table_step"] = (ulps, err)
-    rule = adam.fused_rule()
-    ts_ms = _time_ms(torch, lambda: cuda_ops.fused_update_scatter(
-        table, ch, idx, packed, grads, rule, dim=DIM, slot_names=names,
-        cap=TABLE_CAP, step=4.0), 50)
-    ts_bytes = TABLE_N * (2 * ch * LANES * 4 + DIM * 4 + 4)
-    del table, packed, grads, idx
+    # (b) the table step's shape: Adam, 2Mi rows, ch = 2, N = 65,536
+    inp = fs.fused_inputs(dev, gen, opt_lib.Adam(0.001).fused_rule(), 1,
+                          TABLE_CAP, TABLE_N, foreign=False)
+    checks["adam_table_step"] = check(inp, "adam table step")
+    ts_ms = _time_ms(torch, inp.call, 50)
+    ts_bytes, ts_moved = inp.bound_bytes(), inp.moved_bytes()
+    del inp
     torch.cuda.empty_cache()
 
-    # DLRM's shape: Adagrad, 4Mi rows, ch = 1, N = 4096 x 26
+    # (a) DLRM's shape: Adagrad, 4Mi rows, ch = 1, N = 4096 x 26
     n = DLRM_BATCH * FEATURES
-    adagrad = opt_lib.Adagrad(0.01)
-    ulps, err, (table, packed, grads, idx, names, ch) = _fused_check(
-        torch, cuda_ops, adagrad, 1, C, n, DIM, gen, dev, foreign=False,
-        keep=True)
-    checks["adagrad_dlrm"] = (ulps, err)
-    rule = adagrad.fused_rule()
-    ms = _time_ms(torch, lambda: cuda_ops.fused_update_scatter(
-        table, ch, idx, packed, grads, rule, dim=DIM, slot_names=names,
-        cap=C, step=4.0), 50)
-    plain_ms = _time_ms(torch, lambda: cuda_ops.fused_update_scatter_plain(
-        table, ch, idx, packed, grads, rule, dim=DIM, slot_names=names,
-        cap=C, step=4.0), 10)
-    w = ch * LANES
-    n_bytes = n * (2 * w * 4 + DIM * 4 + 4)
-    n_ops = n * DIM * _ADAGRAD_FLOPS
-    del table, packed, grads, idx
+    inp = fs.fused_inputs(dev, gen, opt_lib.Adagrad(0.01).fused_rule(), 1,
+                          C, n, foreign=False)
+    checks["adagrad_dlrm"] = check(inp, "adagrad dlrm")
+    ms = _time_ms(torch, inp.call, 50)
+    plain_ms = _time_ms(torch, lambda: inp.plain(inp.table), 10)
+    w = inp.ch * LANES
+    n_bytes, moved = inp.bound_bytes(), inp.moved_bytes()
+    n_ops = int(inp.valid().sum()) * DIM * _ADAGRAD_FLOPS
+    del inp
+    torch.cuda.empty_cache()
+
+    # (c) the main path's own operands: one full-width DLRM step's call
+    inp = fs.main_path_inputs(dev, seed)
+    checks["adagrad_main_path"] = check(inp, "adagrad main path")
+    mp_ms = _time_ms(torch, inp.call, 50)
+    mp_bytes, mp_moved = inp.bound_bytes(), inp.moved_bytes()
+    mp_trash, mp_n = inp.trash_share(), inp.idx.shape[0]
+    del inp
     torch.cuda.empty_cache()
     bound_s = max(n_bytes / rate, n_ops / _F32_FLOPS)
     return {
@@ -588,11 +528,18 @@ def fused_kernel_phase(torch, cuda_ops, dev, gen, rate):
         "bound_ms": bound_s * 1e3,
         "bound_by": "bytes" if n_bytes / rate >= n_ops / _F32_FLOPS
         else "operations",
-        "bytes": n_bytes, "ops": n_ops,
+        "bytes": n_bytes, "ops": n_ops, "moved_bytes": moved,
         "shape": f"Adagrad C={C} ch=1 W={w} N={n} D={DIM}",
         "table_step_shape": f"Adam C={TABLE_CAP} ch=2 N={TABLE_N} D={DIM}",
         "table_step_ms": ts_ms,
         "table_step_bound_ms": ts_bytes / rate * 1e3,
+        "table_step_moved_bytes": ts_moved,
+        "main_path_shape": f"one DLRMConfig() step's call: Adagrad C={C} "
+                           f"ch=1 N={mp_n} D={DIM}",
+        "main_path_ms": mp_ms,
+        "main_path_bound_ms": mp_bytes / rate * 1e3,
+        "main_path_moved_bytes": mp_moved,
+        "main_path_trash_share": mp_trash,
     }
 
 
@@ -989,6 +936,8 @@ def _ab_fused_check(torch, fn, mode, table, want, idx, packed, g):
     equal, its other updated words within 4 ulps, its pad columns +0.0;
     every row it must not write bit-exact. Returns (ulps or max |word
     difference|, max |difference| of the updated floats)."""
+    from recommenders_addons_tpu_torch.tools.fused_sweep import max_ulps
+
     a = table.clone()
     fn(a, idx, packed, g, AB_STEP)
     torch.cuda.synchronize()
@@ -1002,7 +951,7 @@ def _ab_fused_check(torch, fn, mode, table, want, idx, packed, g):
             raise AssertionError("ab_fused adam: NaN positions differ")
         keep = ~nan_a[:, :192]
         va, vb = wa[:, :192][keep], wb[:, :192][keep]
-        ulps = _ulps(torch, va, vb, 32)
+        ulps = max_ulps(va, vb, 32)
         err = float((va - vb).abs().max())
         if ulps > 4:
             raise AssertionError(f"ab_fused adam: {ulps} ulps off its plain "
@@ -1188,7 +1137,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     kernels = kernel_phase(torch, cuda_ops, dev, gen, rate)
-    kernels.append(fused_kernel_phase(torch, cuda_ops, dev, gen, rate))
+    kernels.append(fused_kernel_phase(torch, cuda_ops, dev, gen, rate,
+                                      args.seed))
     serving = serving_phase(torch, cuda_ops, dev, gen, args.seed)
     training = training_phase(torch, cuda_ops, dev, args.seed)
     torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) bulk-copy and mbarrier primitives as inline PTX, shared
-// by the row-copy micro-benchmark kernels (dma_gather*.cu, dma_scatter*.cu).
+// by the row-copy micro-benchmark kernels (dma_gather*.cu, dma_scatter*.cu)
+// and the fused optimizer-scatter (fused_update_scatter.cu).
 //
 // A TPU kernel's async copy signalling a DMA semaphore maps onto a
 // `cp.async.bulk` copy whose completion is counted in an mbarrier's
@@ -93,6 +94,12 @@ __device__ __forceinline__ void load_async(void* dst, const void* src,
       ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
       : "memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory before later
+// bulk copies (async proxy) that read them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint64_t evict_first_policy() {
@@ -248,7 +255,8 @@ inline int launch(Kernel kernel, int64_t n, int ch, void* stream,
 }
 
 // ---------------------------------------------------------------------------
-// Persistent pipelines (dma_gather.cu, dma_gather_grouped.cu)
+// Persistent pipelines (dma_gather.cu, dma_gather_grouped.cu,
+// fused_update_scatter.cu)
 // ---------------------------------------------------------------------------
 //
 // A persistent block walks its share of the rows (Share) in stages of R
@@ -276,15 +284,27 @@ inline size_t ring_smem(Ring r, int ch, int nbars) {
          static_cast<size_t>(nbars) * 8;
 }
 
-// The ring for rows of `ch` chunks: stages of max(1, stage_bytes / row)
-// rows, `stages` of them or as many as fit in a block's shared memory
-// beside nbars(ring) barriers (a 128 KiB row leaves room for one).
+// The ring for staged rows of `row_bytes` (a multiple of 16): stages of
+// max(1, stage_bytes / row_bytes) rows, `stages` of them or as many as
+// fit in a block's shared memory beside extra(ring) more bytes (a 128 KiB
+// row leaves room for one).
+template <typename Extra>
+inline Ring make_ring_bytes(int row_bytes, int stage_bytes, int stages,
+                            Extra extra) {
+  Ring r{stages, stage_bytes / row_bytes > 1 ? stage_bytes / row_bytes : 1};
+  while (r.stages > 1 && static_cast<size_t>(r.stages) * r.rows * row_bytes +
+                                 extra(r) >
+                             kSmemMax)
+    --r.stages;
+  return r;
+}
+
+// The ring for rows of `ch` chunks beside nbars(ring) barriers.
 template <typename Bars>
 inline Ring make_ring(int ch, int stage_bytes, int stages, Bars nbars) {
-  const int row = ch * kRowBytes;
-  Ring r{stages, stage_bytes / row > 1 ? stage_bytes / row : 1};
-  while (r.stages > 1 && ring_smem(r, ch, nbars(r)) > kSmemMax) --r.stages;
-  return r;
+  return make_ring_bytes(ch * kRowBytes, stage_bytes, stages, [&](Ring r) {
+    return static_cast<size_t>(nbars(r)) * 8;
+  });
 }
 
 // A block's rows, in stages of R: units of R rows dealt round-robin
@@ -366,15 +386,16 @@ __device__ __forceinline__ void put_stage(int4* __restrict__ dst,
   }
 }
 
-// Blocks of `kernel` at `smem` bytes resident on one SM, times the SMs:
-// queried once per kernel, device and size, then cached (0 blocks is
-// an error: the kernel does not fit).
+// Blocks of `kernel` at `threads` threads and `smem` bytes resident on
+// one SM, times the SMs: queried once per kernel, device and size, then
+// cached (0 blocks is an error: the kernel does not fit).
 inline int persistent_blocks(const void* kernel, size_t smem, int max_per_sm,
-                             int* blocks) {
+                             int* blocks, int threads) {
   struct Entry {
     const void* kernel;
     int device;
     size_t smem;
+    int threads;
     int blocks;
   };
   static std::mutex mu;
@@ -384,7 +405,8 @@ inline int persistent_blocks(const void* kernel, size_t smem, int max_per_sm,
   if (err != cudaSuccess) return static_cast<int>(err);
   std::lock_guard<std::mutex> lock(mu);
   for (const Entry& e : cache) {
-    if (e.kernel == kernel && e.device == dev && e.smem == smem) {
+    if (e.kernel == kernel && e.device == dev && e.smem == smem &&
+        e.threads == threads) {
       *blocks = e.blocks;
       return 0;
     }
@@ -395,28 +417,29 @@ inline int persistent_blocks(const void* kernel, size_t smem, int max_per_sm,
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kPipeThreads, smem);
+                                                      threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   *blocks = (per_sm < max_per_sm ? per_sm : max_per_sm) * sms;
-  cache.push_back(Entry{kernel, dev, smem, *blocks});
+  cache.push_back(Entry{kernel, dev, smem, threads, *blocks});
   return 0;
 }
 
-// Launch `kernel` persistently on `stream`: the resident blocks (at most
-// `max_per_sm` per SM), but no more than `units` units of work; returns
-// the CUDA error (0 on success).
+// Launch `kernel` persistently on `stream` with blocks of `threads`: the
+// resident blocks (at most `max_per_sm` per SM), but no more than `units`
+// units of work; returns the CUDA error (0 on success).
 template <typename Kernel, typename... Args>
-inline int launch_persistent(Kernel kernel, size_t smem, int max_per_sm,
-                             int64_t units, void* stream, Args... args) {
+inline int launch_persistent(Kernel kernel, int threads, size_t smem,
+                             int max_per_sm, int64_t units, void* stream,
+                             Args... args) {
   int blocks = 0;
   const int err = persistent_blocks(reinterpret_cast<const void*>(kernel),
-                                    smem, max_per_sm, &blocks);
+                                    smem, max_per_sm, &blocks, threads);
   if (err) return err;
   const int64_t grid = units < blocks ? units : blocks;
-  kernel<<<static_cast<unsigned>(grid), kPipeThreads, smem,
+  kernel<<<static_cast<unsigned>(grid), threads, smem,
            static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }

@@ -174,7 +174,7 @@ int run(const void* table, int64_t nphys, int ch, const void* idx, int64_t n,
   const auto nbars = [nbuf](bulk::Ring r) { return nbuf + 2 * r.stages; };
   const bulk::Ring ring = bulk::make_ring(ch, kStageBytes, kStages, nbars);
   return bulk::launch_persistent(
-      dma_gather_kernel<UNROLL, BITAND>,
+      dma_gather_kernel<UNROLL, BITAND>, bulk::kPipeThreads,
       bulk::ring_smem(ring, ch, nbars(ring)), kBlocksPerSm,
       (n + ring.rows - 1) / ring.rows, stream,
       static_cast<const int4*>(table), nphys, ch,

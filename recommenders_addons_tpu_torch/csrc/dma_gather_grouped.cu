@@ -170,8 +170,9 @@ extern "C" int dma_gather_grouped(const void* table, int64_t nphys, int ch,
     };
     const bulk::Ring ring = bulk::make_ring(ch, kStageBytes, kStages, nbars);
     err = bulk::launch_persistent(
-        dma_gather_grouped_kernel<G>, bulk::ring_smem(ring, ch, nbars(ring)),
-        kBlocksPerSm, (n + ring.rows - 1) / ring.rows, stream,
+        dma_gather_grouped_kernel<G>, bulk::kPipeThreads,
+        bulk::ring_smem(ring, ch, nbars(ring)), kBlocksPerSm,
+        (n + ring.rows - 1) / ring.rows, stream,
         static_cast<const int4*>(table), nphys, ch,
         static_cast<const int32_t*>(idx), n, ngroups, ring,
         static_cast<int4*>(out));

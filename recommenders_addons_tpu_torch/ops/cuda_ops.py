@@ -504,13 +504,16 @@ def _fused_plain(t32, ch, cap, idx, packed, grads, rule, dim, slot_names,
 
 
 def _fused_cuda(t32, ch, cap, idx, packed, grads, rule, dim, slot_names,
-                step, pf):
+                step, pf, kernel=None):
+    """Launch ``kernel`` (default :data:`FUSED_UPDATE_SCATTER`; the ring
+    sweep passes its rebuilt copies)."""
+    _check_aligned(t32, packed)
     n = idx.shape[0]
     if not n:
         return
     pos = [slot_names.index(nm) for nm in rule.slots] + [-1, -1]
     hp = [float(h) for h in rule.hparams] + [0.0] * (8 - len(rule.hparams))
-    FUSED_UPDATE_SCATTER.launch(
+    (kernel or FUSED_UPDATE_SCATTER).launch(
         t32.device, t32.data_ptr(), cap, ch, idx.data_ptr(), n,
         packed.data_ptr(), grads.data_ptr(), dim, len(slot_names), pf,
         _RULES[rule.kind], pos[0], pos[1], float(step), *hp)
@@ -522,14 +525,18 @@ def fused_update_scatter(table2d: torch.Tensor, ch: int, idx: torch.Tensor,
                          cap: int, step: float = 0.0, pf: int = 1):
     """Apply ``rule`` to each batch row and write the whole new row into
     the PHYSICAL ``[(C+1)*ch, 128]`` table IN PLACE, at ``idx`` where
-    ``0 <= idx < cap``, else at the trash row. Returns ``table2d``.
+    ``0 <= idx < cap``. Returns ``table2d``. Rows with any other index
+    belong to the trash row at ``cap``, whose contents are unspecified:
+    the plain version writes their updates there, the kernel does no work
+    for them and leaves it as it is.
 
     ``packed`` is the lookup's ``[N, ch*128]`` block of 32-bit words (or
     the same bytes as ``[N*ch, 128]``): ``[value | slot columns | pad]``
     in f32 (``pf=1``) or as bf16 pairs (``pf=2``); ``grads`` ``[N, dim]``
     f32; ``slot_names`` the table's sorted slot columns. The table's other
     slot columns pass through, the padding is written as zeros. Valid
-    indices must be unique; ``packed`` must not alias the table.
+    indices must be unique; ``packed`` must not alias the table. On the
+    card, the table and ``packed`` must start on a 16-byte boundary.
 
     CUDA tensors run the ``fused_update_scatter`` kernel; CPU tensors run
     :func:`fused_update_scatter_plain`."""

@@ -11,13 +11,15 @@ Variable's ``device`` (default CUDA). Inference: ``init``, ``lookup``,
     state = var.apply_gradients(state, ctx, emb_grad, optimizer, step=step)
 
 Waiting for a later slice (they raise): ``bp_v2`` deltas, deferred
-dedup, ``return_evicted``.
+dedup (``defer_dedup=True``, or ``TFRA_TPU_DEFER_DEDUP=1`` when it is
+None, on a lookup given a score), ``return_evicted``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import zlib
 from typing import Any, Dict, Optional
 
@@ -228,6 +230,14 @@ class Variable:
                                 epoch=0 if epoch is None else epoch)
         return sc[0]
 
+    @property
+    def defer_dedup_on(self) -> bool:
+        """``defer_dedup``, or when it is None the ``TFRA_TPU_DEFER_DEDUP``
+        knob (``1``: on), as the JAX package reads them."""
+        if self.defer_dedup is not None:
+            return bool(self.defer_dedup)
+        return os.environ.get("TFRA_TPU_DEFER_DEDUP", "0") == "1"
+
     def embedding_lookup(self, state: TableState, ids, *, step=None,
                          epoch=None):
         """Trainable lookup with built-in dedup. Returns ``(emb
@@ -239,13 +249,15 @@ class Variable:
         scatter doubles as the duplicate probe; the fused apply then
         leaves scores alone. ``emb`` is a view of the lookup's packed rows
         (``ctx.packed``), which the apply reads."""
-        if self.bp_v2 or self.defer_dedup:
+        score_const = self.lookup_score_const(step, epoch)
+        # the reference defers only a scored lookup
+        if self.bp_v2 or (self.defer_dedup_on and score_const is not None):
             raise NotImplementedError(
-                "bp_v2 and defer_dedup are not ported yet")
+                "bp_v2 and defer_dedup (or TFRA_TPU_DEFER_DEDUP=1) on a "
+                "scored lookup are not ported yet")
         ids = torch.as_tensor(ids)
         flat = self._flat_kv(ids, device=state.device)
         n = flat.shape[0]
-        score_const = self.lookup_score_const(step, epoch)
         base = self._rng(state.device)
         out = hashtable.plan_lookup_train(
             self.spec, state, flat,

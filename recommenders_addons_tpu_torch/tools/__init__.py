@@ -1,16 +1,18 @@
 """The port's kernel measurement tools, each named after its counterpart
 in the repository's ``tools/`` (the JAX package's tools):
 ``dma_bench`` (row copies), ``ab_kernel_cost`` (the fused-apply cost
-probe) and ``ab_radix_plan`` (the radix-histogram probe), plus
-``gather_sweep``, the port's own ring-geometry sweep of the two
-pipelined gathers (no counterpart). Each runs as
+probe) and ``ab_radix_plan`` (the radix-histogram probe), plus the
+port's own ring-geometry sweeps (no counterpart): ``gather_sweep``, of
+the two pipelined gathers, and ``fused_sweep``, of the fused
+optimizer-scatter. Each runs as
 ``python -m recommenders_addons_tpu_torch.tools.<name>``; the modules
 load on first access, so running one that way does not import it
 twice."""
 
 import importlib
 
-__all__ = ["ab_kernel_cost", "ab_radix_plan", "dma_bench", "gather_sweep"]
+__all__ = ["ab_kernel_cost", "ab_radix_plan", "dma_bench", "fused_sweep",
+           "gather_sweep"]
 
 
 def __getattr__(name):

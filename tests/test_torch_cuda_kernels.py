@@ -9,7 +9,10 @@ row gather and scatter the tables hold random 32-bit words (NaN bit
 patterns included) and the kernels only move them, so every comparison is
 bit-exact (on int32 views). The fused optimizer-scatter computes: rows it
 does not write stay bit-exact, and updated f32 words agree within 4 ulps
-(powf and the divisions round independently), bf16 halves within 1 ulp.
+(powf and the divisions round independently), bf16 halves within 1 ulp;
+its pipeline's turns are held bit-exact (the kernel repeats the plain
+version's operations without fused multiply-add), and the trash row,
+which the kernel leaves alone, unchanged.
 The fused-apply probe's kernel (tools/ab_kernel_cost.py) follows the same
 rule, its identity and raw-copy modes bit-exact; the radix probe's
 histogram (tools/ab_radix_plan.py) counts integers, so it is exact."""
@@ -26,6 +29,7 @@ from recommenders_addons_tpu_torch.tools import (
     ab_kernel_cost,
     ab_radix_plan,
     dma_bench,
+    fused_sweep,
     gather_sweep,
 )
 
@@ -261,6 +265,171 @@ def test_fused_update_scatter_matches_plain_on_card(cuda, name, pf):
     else:
         assert _ulps_bf16(rows_a[written].view(torch.bfloat16),
                           rows_b[written].view(torch.bfloat16)) <= 1
+
+
+def _fused_stage_rows(used_words, dim):
+    """R, the staged rows of one stage of the fused kernel's ring for
+    rows of ``used_words`` value and slot words and ``dim`` staged grads
+    (at least one)."""
+    kib = int(re.search(r"constexpr int kStageBytes = (\d+) \* 1024;",
+                        cuda_ops.FUSED_UPDATE_SCATTER.source.read_text())
+              .group(1))
+    return max(1, kib * 1024 // ((-(-used_words // 4) * 4 + dim) * 4))
+
+
+# (optimizer, pf, cap, N, dim, indices): where the pipeline turns
+FUSED_TURNS = {
+    "N below one batch": ("adam", 1, 1 << 12, 19, 64, "mixed"),
+    "N ragged past a stage": ("adagrad", 1, 1 << 12, None, 64, "mixed"),
+    "ring wraps": ("adagrad", 1, 1 << 19, (1 << 18) + 3, 64, "mixed"),
+    "all trash": ("adam", 1, 1 << 12, 1037, 64, "trash"),
+    "two thirds trash in runs": ("adagrad", 1, 1 << 14, 9001, 64, "runs"),
+    "two thirds trash scattered": ("adagrad", 1, 1 << 14, 9001, 64,
+                                   "scattered"),
+    "negative and past the end": ("sgd", 1, 1 << 12, 1037, 64, "extremes"),
+    "dim % 4 != 0 (scalar path)": ("adam", 1, 1 << 12, 1037, 6, "mixed"),
+    "bf16 dim/2 % 4 != 0": ("adam", 2, 1 << 12, 1037, 12, "mixed"),
+    "grads off 16 bytes": ("adagrad", 1, 1 << 12, 1037, 64, "grads off"),
+    "ch = 256 shrinks the ring": ("adam", 1, 64, 50, 8192, "mixed"),
+    **{f"{k} f32": (k, 1, 1 << 12, 3001, 64, "scattered")
+       for k in OPTIMIZERS},
+    "adam bf16": ("adam", 2, 1 << 12, 3001, 64, "scattered"),
+    "adagrad bf16": ("adagrad", 2, 1 << 12, 3001, 64, "scattered"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("turn", list(FUSED_TURNS))
+def test_fused_pipeline_turns_match_plain_on_card(cuda, turn):
+    """The fused kernel's persistent pipeline, bit-exact on rows [0, cap)
+    against the plain version (rows it must not write unchanged), and
+    the trash row left as it was: N below one 32-row batch and ragged
+    past a stage; N = 2^18 + 3, where every block wraps its ring many
+    times; all rows trash; two thirds trash in runs of 64 and scattered;
+    int32's extremes as indices; a value block of dim/pf % 4 != 0 words
+    (the scalar path); grads one word off 16-byte alignment (read from
+    device memory); rows of 128 KiB (ch = 256), one a stage; every rule
+    in f32 and Adam and Adagrad in bf16. Every table carries a foreign
+    slot column the kernel passes through."""
+    name, pf, cap, n, dim, kind = FUSED_TURNS[turn]
+    if n is None:  # three stages and a bit
+        words = dim // pf * (1 + len(OPTIMIZERS[name].slot_specs()) + 1)
+        n = 3 * _fused_stage_rows(words, dim) + 17
+    opt, names, ch, table, packed, grads, idx = _fused_case(
+        name, pf, cap, n, dim=dim)
+    rng = np.random.default_rng(n)
+    if kind == "trash":
+        idx[:] = cap
+    elif kind == "runs":
+        for s in range(0, n, 96):
+            idx[s + 32:s + 96] = cap
+    elif kind == "scattered":
+        drop = torch.from_numpy(rng.random(n) < 2 / 3)
+        idx[drop] = torch.from_numpy(np.where(
+            rng.random(n) < 0.5, cap, -5).astype(np.int32))[drop]
+    elif kind == "extremes":
+        idx[::3] = -(1 << 31)
+        idx[1::5] = (1 << 31) - 1
+    table, packed, grads, idx = (t.to(cuda) for t in (table, packed, grads,
+                                                       idx))
+    if kind == "grads off":
+        buf = torch.zeros(n * dim + 1, device=cuda)
+        buf[1:] = grads.reshape(-1)
+        grads = buf[1:].view(n, dim)
+        assert grads.data_ptr() % 16
+    a, b = table.clone(), table.clone()
+    before = cuda_ops.FUSED_UPDATE_SCATTER.launches
+    for t, fn in ((a, cuda_ops.fused_update_scatter),
+                  (b, cuda_ops.fused_update_scatter_plain)):
+        fn(t, ch, idx, packed, grads, opt.fused_rule(), dim=dim,
+           slot_names=names, cap=cap, step=4.0, pf=pf)
+    torch.cuda.synchronize()
+    assert cuda_ops.FUSED_UPDATE_SCATTER.launches == before + 1
+    live = cap * ch
+    assert torch.equal(a[:live].view(torch.int32), b[:live].view(torch.int32))
+    assert torch.equal(a[live:].view(torch.int32),
+                       table[live:].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_fused_update_scatter_empty_batch_launches_nothing(cuda):
+    opt, names, ch, table, packed, grads, idx = _fused_case("adam", 1, 64, 8)
+    table = table.to(cuda)
+    want = table.clone()
+    before = cuda_ops.FUSED_UPDATE_SCATTER.launches
+    cuda_ops.fused_update_scatter(
+        table, ch, idx[:0].to(cuda), packed[:0].to(cuda),
+        grads[:0].to(cuda), opt.fused_rule(), dim=64, slot_names=names,
+        cap=64)
+    torch.cuda.synchronize()
+    assert cuda_ops.FUSED_UPDATE_SCATTER.launches == before
+    assert torch.equal(table.view(torch.int32), want.view(torch.int32))
+
+
+def test_fused_sweep_rewrites_the_ring_constants(tmp_path, monkeypatch):
+    """The sweep's copy of the fused kernel carries the geometry it asks
+    for (each constant found once) and builds under its own library
+    name; its default grid keeps only rings that fit beside each other."""
+    monkeypatch.setattr(fused_sweep, "_SWEEP_DIR", tmp_path)
+    k = fused_sweep.copy_kernel("f", cuda_ops._PKG / "csrc", dict(zip(
+        fused_sweep.CONSTS, ("16 * 1024", 2, 3, 8))))
+    text = k.source.read_text()
+    for line in ("constexpr int kStageBytes = 16 * 1024;",
+                 "constexpr int kStages = 2;",
+                 "constexpr int kBlocksPerSm = 3;",
+                 "constexpr int kConsumers = 8;"):
+        assert line in text, line
+    assert (k.source.parent / "bulk_copy.cuh").is_file()
+    assert k.library.name != cuda_ops.FUSED_UPDATE_SCATTER.library.name
+    grid = fused_sweep.default_geometries()
+    assert (32, 4, 1, 4) in grid and (32, 4, 2, 4) not in grid
+    assert all(kib * s * b < 227 for kib, s, b, _ in grid)
+    with pytest.raises(RuntimeError):  # the sweep times kernels on a card
+        fused_sweep.main([], device="cpu")
+
+
+def test_fused_sweep_main_path_inputs_on_cpu():
+    """Input (c) of the sweep at a small width: one DLRM step's call of
+    the fused apply, captured before it ran. Its padding and duplicate
+    rows are bound for the trash row; the bound counts what the rows
+    with a valid index move."""
+    from recommenders_addons_tpu_torch.models import dlrm
+
+    inp = fused_sweep.main_path_inputs(
+        torch.device("cpu"), 0, dlrm.DLRMConfig(table_capacity=1 << 12),
+        batch=64)
+    n = 64 * 26
+    assert inp.idx.shape == (n,) and inp.grads.shape == (n, 64)
+    assert inp.rule.kind == "adagrad" and inp.ch == 1
+    assert 0.2 < inp.trash_share() < 0.9
+    valid = int(inp.valid().sum())
+    assert inp.bound_bytes() == valid * (1024 + 256) + 4 * n
+    assert inp.moved_bytes() == inp.bound_bytes()
+    want = inp.table.clone()
+    inp.plain(want)
+    got = inp.table.clone()
+    inp.call(got)  # CPU tensors: the plain version
+    assert fused_sweep.compare(got, want, inp, "cpu") == (0, 0.0)
+
+
+def test_fused_sweep_bound_counts_valid_rows_and_used_words():
+    """The bytes bound counts, for each row with a valid index, its value
+    and slot words read (not the padding), its grads read and its whole
+    row written, plus 4 B an index; the kernel's moved bytes round each
+    row's read up to 16 B."""
+    gen = torch.Generator().manual_seed(0)
+    adam = opt_lib.Adam(0.001).fused_rule()
+    inp = fused_sweep.fused_inputs(torch.device("cpu"), gen, adam, 1, 512,
+                                   300, foreign=False)
+    valid = int(inp.valid().sum())
+    assert inp.ch == 2 and 0 < valid < 300
+    assert inp.bound_bytes() == valid * (192 * 4 + 256 + 1024) + 4 * 300
+    assert inp.moved_bytes() == inp.bound_bytes()
+    inp = fused_sweep.fused_inputs(torch.device("cpu"), gen,
+                                   opt_lib.Adagrad(0.01).fused_rule(), 1,
+                                   512, 300, dim=5, foreign=False)
+    assert (inp.moved_bytes() - inp.bound_bytes()
+            == int(inp.valid().sum()) * 8)
 
 
 # -- the row-copy micro-benchmark's kernels (tools/dma_bench.py) ------------

@@ -343,3 +343,34 @@ def test_training_api_guards():
     with pytest.raises(NotImplementedError):
         tde.DynamicEmbeddingOptimizer(object())
     assert isinstance(tde.DynamicEmbeddingOptimizer("adam"), tde.Adam)
+
+
+@pytest.mark.parametrize("field", [None, True, False])
+def test_defer_dedup_knob_reads_like_the_reference(field, monkeypatch):
+    """With ``TFRA_TPU_DEFER_DEDUP=1`` both packages report the deferred
+    path alike (the field wins when set). The reference defers only a
+    scored lookup (LRU given ``step``): there the port, which has no
+    deferred path yet, raises; an unscored lookup takes the ordinary path
+    in both and agrees."""
+    monkeypatch.setenv("TFRA_TPU_DEFER_DEDUP", "1")
+    jv = jvar.Variable(name="d", dim=DIM, init_capacity=256,
+                       initializer=jax.nn.initializers.uniform(0.05),
+                       defer_dedup=field)
+    tv = tde.Variable(name="d", dim=DIM, init_capacity=256,
+                      initializer=tinit.uniform(0.05), device="cpu",
+                      defer_dedup=field)
+    on = field is not False
+    assert tv.defer_dedup_on == jv.defer_dedup_on == on
+    keys = np.array([3, 1, 3, 7], np.int64)
+    _, jctx = jv.embedding_lookup(jv.init(), jnp.asarray(keys), step=1)
+    assert jctx.deferred == on
+    if on:
+        with pytest.raises(NotImplementedError):
+            tv.embedding_lookup(tv.init(), torch.from_numpy(keys), step=1)
+    else:
+        tv.embedding_lookup(tv.init(), torch.from_numpy(keys), step=1)
+    want, jctx = jv.embedding_lookup(jv.init(), jnp.asarray(keys))
+    assert not jctx.deferred
+    got, ctx = tv.embedding_lookup(tv.init(), torch.from_numpy(keys))
+    assert not ctx.deferred
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
