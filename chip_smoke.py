@@ -3,9 +3,11 @@
 one NVIDIA card: builds the hand-written CUDA kernels from csrc/, holds
 each against its plain PyTorch version at its main paths' shapes, serves
 a DLRM-width dynamic-embedding table through the port's EmbeddingServer,
-trains the full-width DLRM through train_loop, and runs the table-step
+trains the full-width DLRM through train_loop, runs the table-step
 benchmark's configuration through hit, duplicate, fresh-key and eviction
-batches, checking each result against a reference.
+batches and through the rest of the training surface (deferred dedup,
+bp_v2, evicted rows, the KV API), and the kernel tools, checking each
+result against a reference.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -55,7 +57,27 @@ Phases (any failure exits non-zero):
    normal(0.05)): embedding_lookup + apply_gradients on batches of 65,536
    ids: fresh, all-hit, zipf duplicates, fresh again, and, after filling
    the table to capacity, fresh ids that must evict.
-5. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
+5. The rest of the training surface at the table step's width
+   (Variable(dim=64, init_capacity=2Mi, Adam(0.001), LRU, normal(0.05)),
+   batches of 65,536 ids): (a) 10 zipf-duplicate steps with deferred
+   dedup (fused_update_scatter every step) against the same steps with
+   eager dedup from a copy of the starting state: key and score planes
+   bit-exact, rows within rtol 1e-5 / atol 1e-6, ms/step of both, and
+   the ulps between two deferred runs; (b) 5 bp_v2 steps (the unfused
+   path: row_gather and row_scatter, no fused_update_scatter) against the
+   assigning apply, planes bit-exact, rows within the same tolerance;
+   (c) return_evicted on the fused and the unfused (bp_v2) path, a full
+   table taking 65,536 fresh ids (100 of them in one bucket): the
+   evicted keys are exactly the keys that left the table, their values,
+   slots and scores bit-exact against the table before the step, the
+   dropped keys exactly the fresh ids not placed; (d) import_batch of
+   1Mi (key, value, score, Adam slot rows) with 5% duplicate keys (last
+   occurrence wins, bit-exact), accum of 65,536 ids with duplicates and
+   the exists guard (per-key sums of a numpy f64 reference within rtol
+   1e-5 / atol 1e-5; skipped keys bit-exact), remove of half the keys,
+   clear; (e) plan_lookup_fast on all-hit dup-free, all-hit duplicate and
+   miss batches against plan_lookup's contract.
+6. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
    dma_bench.py) at its two full-width shapes, 2Mi rows of 2 chunks (its
    default) and 4Mi rows of 1: every variant of its two lists, a
    predicated gather (row and premultiplied predicate) and a predicated
@@ -69,7 +91,7 @@ Phases (any failure exits non-zero):
    index_copy_); then its four kernels' plain versions timed, and the two
    gathers' ms over their bound and over index_select, with a
    torch.profiler trace of 10 calls each (device busy share, kernel ms).
-6. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
+7. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
    and ab_radix_plan.py). ab_fused against its plain version at the
    fused-apply probe's full width (2Mi rows of 1 KiB, N = 66,573 unique
    indices, v >= 0), every mode x sub x nbuf: identity and rawcopy
@@ -77,17 +99,24 @@ Phases (any failure exits non-zero):
    rows it does not write bit-exact; once more on the probe's own
    standard-normal inputs (v < 0), where the NaN positions must agree.
    radix_hist against torch.bincount, bit-exact, on 65,536 bucket ids of
-   the 2Mi table and on a ragged N with negative and >= 1024 ids. Each
-   kernel timed beside its plain version (and torch.bincount); then each
-   tool's main() (ns/row of its five variants; ns/key of its four).
+   the 2Mi table, on a ragged N with negative and >= 1024 ids (also
+   starting off a 16-byte boundary) and on 4,194,304 bucket ids; then
+   tools/hist_bench.py times it at 8,192, 65,536 and 4,194,304 ids beside
+   an empty kernel (the launch floor) and counts its device operations
+   per call: the nodes of a CUDA graph captured from one call must be one
+   kernel and nothing else, at each N (a torch.profiler count, which
+   drops events now and then, is reported beside it). Each kernel timed
+   beside its plain version (and torch.bincount); then each tool's main()
+   (ns/row of its five variants; ns/key of its four).
 
-Each main path (serving, DLRM training, table step, dma_bench,
-ab_kernel_cost, ab_radix_plan) is driven with the kernels' launch counts
-set to 0 just before it and read just after; a kernel of the path that
-was not launched fails the run.
+Each main path (serving, DLRM training, table step, the five parts of
+the training surface, dma_bench, ab_kernel_cost, ab_radix_plan) is
+driven with the kernels' launch counts set to 0 just before it and read
+just after; a kernel of the path that was not launched fails the run.
 
 Output: the card's name and power limit on a line of its own,
-``{"serving": ...}``, ``{"training": ...}``, ``{"dma_bench": ...}``,
+``{"serving": ...}``, ``{"training": ...}``,
+``{"training_surface": ...}``, ``{"dma_bench": ...}``,
 ``{"ab_tools": ...}``, ``{"kernels": [...]}`` and last
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -123,6 +152,15 @@ DLRM_BATCH = 4096  # bench.py's DLRM batch: 4096 x 26 = 106,496 keys
 DLRM_STEPS = 20
 TABLE_CAP = 1 << 21  # bench.py CAP
 TABLE_N = 65536  # bench.py's larger batch
+# the training_surface phase: deferred zipf steps, bp_v2 steps, fresh ids
+# crowded into one bucket (more than its 64 slots, so some are dropped),
+# the import size, and tests/test_torch_training_surface.py's f32
+# tolerance for rows trained two ways
+SURFACE_STEPS = 10
+SURFACE_BP_STEPS = 5
+SURFACE_CROWD = 100
+SURFACE_IMPORT_N = 1 << 20
+SURFACE_RTOL, SURFACE_ATOL = 1e-5, 1e-6
 # tools/dma_bench.py: its default (2Mi rows of 1 KiB, bench.py's CAP and
 # table-step row) and kernel 1's serving shape (4Mi rows of 512 B)
 DMA_SHAPES = ((21, 2), (22, 1))
@@ -132,6 +170,7 @@ DMA_PIPE_CHECKS = ((64, 256, 1037), (64, 256, (1 << 11) + 3),
                    (1 << 12, 2, (1 << 18) + 3))
 AB_N_CHECK = 65536 + 1037  # ragged: a partial tile and chunk
 AB_STEP = 3.0
+HIST_N_BIG = 1 << 22  # radix_hist over a grid of many clusters
 
 _F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per updated column of Adagrad (ops/optimizer.py:
@@ -779,6 +818,319 @@ def table_step_phase(torch, cuda_ops, dev, seed):
     return out
 
 
+def _clone_state(st):
+    """A copy of a table state (the row kernels write ``rows`` in place)."""
+    return st.replace(key_lo=st.key_lo.clone(), key_hi=st.key_hi.clone(),
+                      rows=st.rows.clone(), scores=st.scores.clone())
+
+
+def _launched(cuda_ops, part, names):
+    """This part's launch counts; fails if a kernel of ``names`` was not
+    launched."""
+    launches = {k.name: k.launches for k in cuda_ops.KERNELS}
+    missing = [k for k in names if not launches[k]]
+    if missing:
+        raise AssertionError(f"{missing} not launched in training_surface "
+                             f"{part}: {launches}")
+    return launches
+
+
+def _rows_close(torch, got, want, what):
+    """Rows [0, C) within the training tests' f32 tolerance (rtol 1e-5,
+    atol 1e-6); returns the max |difference|."""
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=SURFACE_RTOL, atol=SURFACE_ATOL):
+        raise AssertionError(f"{what}: rows differ by up to {err}")
+    return err
+
+
+def training_surface_phase(torch, cuda_ops, dev, seed):
+    """Phase 5: the rest of the training surface at the table step's full
+    width (Variable(dim=64, init_capacity=2Mi, Adam(0.001), LRU,
+    normal(0.05)), batches of 65,536 ids made as table_step_phase makes
+    them): (a) deferred dedup, (b) bp_v2, (c) return_evicted on the fused
+    and the unfused path, (d) import_batch / accum / remove / clear, (e)
+    plan_lookup_fast. The launch counts are reset before each part."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.ops import hashing
+    from recommenders_addons_tpu_torch.ops import hashtable as ht
+    from recommenders_addons_tpu_torch.tools.fused_sweep import max_ulps
+
+    opt = de.Adam(0.001)
+
+    def variable(**kw):
+        return de.Variable(name="surface", dim=DIM, init_capacity=TABLE_CAP,
+                           initializer=de.initializers.normal(0.05), **kw)
+
+    var = variable()
+    spec = var.spec
+    rng = np.random.default_rng(seed)
+    base_np = np.unique(rng.integers(1, 1 << 62, size=TABLE_N + 4096))
+    base_np = rng.permutation(base_np)[:TABLE_N].astype(np.int64)
+    base = torch.from_numpy(base_np).to(dev)
+    zipfs = [torch.from_numpy(base_np[(rng.zipf(1.2, size=TABLE_N) - 1)
+                                      % TABLE_N]).to(dev)
+             for _ in range(SURFACE_STEPS)]
+    start = de.create_slots(var, var.init(), opt)
+    _, ctx = var.embedding_lookup(start, base, step=1)
+    start = var.apply_gradients(start, ctx, torch.zeros_like(ctx.rows), opt,
+                                step=1)
+    out = {"config": "Variable(dim=64, init_capacity=2Mi, Adam(0.001), LRU, "
+                     "normal(0.05)); batches of 65,536 ids",
+           "launches": {}}
+
+    # each occurrence's gradient: its row x 0.01 plus noise of its own,
+    # the same in every run (duplicates of a key get different grads, so
+    # the order of their sum shows in the rows)
+    gn = torch.Generator(device=dev).manual_seed(seed + 1)
+    noise = [torch.randn((TABLE_N, DIM), device=dev, generator=gn) * 1e-3
+             for _ in range(max(SURFACE_STEPS, SURFACE_BP_STEPS))]
+
+    def run(v, st, batches, lookup_ahead, t0=2):
+        """Lookup + apply over ``batches``; returns (state, ms/step, ctxs).
+        Host clock around the steps with one sync, as table_step_phase."""
+        ctxs = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i, keys in enumerate(batches):
+            s = t0 + i
+            emb, ctx = v.embedding_lookup(st, keys, step=s + lookup_ahead)
+            st = v.apply_gradients(st, ctx, emb * 0.01 + noise[i], opt,
+                                   step=s)
+            ctxs.append(ctx)
+        torch.cuda.synchronize()
+        return st, (time.perf_counter() - t) / len(batches) * 1e3, ctxs
+
+    # -- (a) deferred dedup: zipf duplicates, step given at lookup --------
+    cuda_ops.reset_launches()
+    deferred = variable(defer_dedup=True)
+    d1, d_ms, ctxs = run(deferred, _clone_state(start), zipfs, 2)
+    out["launches"]["deferred"] = _launched(cuda_ops, "(a)",
+                                            ["row_gather",
+                                             "fused_update_scatter"])
+    if cuda_ops.FUSED_UPDATE_SCATTER.launches != SURFACE_STEPS:
+        raise AssertionError("the deferred steps did not each launch "
+                             "fused_update_scatter")
+    if not all(c.deferred and c.rows_aligned and not c.no_dups
+               and bool(c.found.all()) for c in ctxs):
+        raise AssertionError("the zipf steps should hit with duplicates "
+                             "under the occurrence contract")
+    eager, e_ms, _ = run(var, _clone_state(start), zipfs, 2)
+    d2, _, _ = run(deferred, _clone_state(start), zipfs, 2)
+    for f in ("key_lo", "key_hi", "scores"):
+        if not torch.equal(getattr(d1, f), getattr(eager, f)):
+            raise AssertionError(f"deferred and eager {f} differ")
+    cap = spec.capacity
+    a_err = _rows_close(torch, d1.rows_logical, eager.rows_logical,
+                        "deferred vs eager")
+    out["deferred"] = {
+        "steps": SURFACE_STEPS, "deferred_ms_per_step": d_ms,
+        "eager_ms_per_step": e_ms, "rows_max_abs_err_vs_eager": a_err,
+        "ulps_between_two_deferred_runs": max_ulps(
+            d1.rows_logical, d2.rows_logical, 32)}
+    del d1, d2, eager, ctxs
+
+    # -- (b) bp_v2: the unfused path, against the plain (assigning) apply
+    bp_batches = [zipfs[0], base ^ (1 << 41), zipfs[1], base ^ (1 << 42),
+                  base][:SURFACE_BP_STEPS]
+    cuda_ops.reset_launches()
+    bp, bp_ms, _ = run(variable(bp_v2=True), _clone_state(start),
+                       bp_batches, 0)
+    out["launches"]["bp_v2"] = _launched(cuda_ops, "(b)",
+                                         ["row_gather", "row_scatter"])
+    if cuda_ops.FUSED_UPDATE_SCATTER.launches:
+        raise AssertionError("bp_v2 must take the unfused path")
+    plain, plain_ms, _ = run(var, _clone_state(start), bp_batches, 0)
+    for f in ("key_lo", "key_hi", "scores"):
+        if not torch.equal(getattr(bp, f), getattr(plain, f)):
+            raise AssertionError(f"bp_v2 and the plain apply: {f} differ")
+    # each write is old + (new - old), within an ulp of new; five Adam
+    # steps keep that far inside rtol 1e-5 / atol 1e-6
+    out["bp_v2"] = {"steps": len(bp_batches), "ms_per_step": bp_ms,
+                    "plain_ms_per_step": plain_ms,
+                    "rows_max_abs_err_vs_plain": _rows_close(
+                        torch, bp.rows_logical, plain.rows_logical,
+                        "bp_v2 vs the plain apply")}
+    del bp, plain
+
+    # -- (c) return_evicted: a full table takes one fresh batch ----------
+    g = torch.Generator(device=dev).manual_seed(seed)
+    full = _clone_state(start)
+    step = 3
+    while int(var.size(full)) < cap:
+        keys = torch.randint(1, 1 << 62, (1 << 20,), device=dev, generator=g)
+        vals = torch.randn((1 << 20, DIM), device=dev, generator=g) * 0.05
+        full = var.upsert(full, keys, vals, step=step)
+        step += 1
+    # fresh ids, SURFACE_CROWD of them in one bucket: more than it holds
+    cand = torch.randint(1 << 61, 1 << 62, (SURFACE_CROWD * spec.num_buckets
+                                           * 4,), device=dev, generator=g)
+    crowd = cand[hashing.bucket_of(cand, spec.num_buckets) == 0]
+    crowd = crowd.unique()[:SURFACE_CROWD]
+    fresh = torch.cat([base[: TABLE_N - crowd.numel()] ^ (1 << 43), crowd])
+    out["evicted"] = {}
+    for path, v, kernels in (
+            ("fused", var, ["row_gather", "fused_update_scatter"]),
+            ("unfused_bp_v2", variable(bp_v2=True),
+             ["row_gather", "row_scatter"])):
+        before = _clone_state(full)
+        st = _clone_state(full)
+        cuda_ops.reset_launches()
+        emb, ctx = v.embedding_lookup(st, fresh, step=step)
+        st, ev = v.apply_gradients(st, ctx, emb * 0.01, opt, step=step,
+                                   return_evicted=True)
+        torch.cuda.synchronize()
+        out["launches"][f"evicted_{path}"] = _launched(cuda_ops, "(c)",
+                                                       kernels)
+        live_b = before.keys[ht.occupancy_mask(spec, before)]
+        live_a = st.keys[ht.occupancy_mask(spec, st)]
+        gone = live_b[~torch.isin(live_b, live_a)]
+        hit = ev["keys"] != var.empty_key
+        ev_keys = ev["keys"][hit]
+        if not (gone.numel() and torch.equal(gone.sort().values,
+                                             ev_keys.sort().values)):
+            raise AssertionError(f"{path}: the evicted keys are not the "
+                                 f"keys that left the table")
+        slot, found = ht.find(spec, before, ev_keys)
+        if not bool(found.all()):
+            raise AssertionError(f"{path}: an evicted key was not stored")
+        rows_b = before.rows_logical[slot.long()]
+        checks = [(ev["values"][hit], rows_b[:, :DIM]),
+                  (ev["scores"][hit], before.scores[slot.long()])]
+        for nm in before.slot_names:
+            off = before.slot_offset(nm)
+            checks.append((ev["slots"][nm][hit], rows_b[:, off:off + DIM]))
+        if any(_same_bits(torch, a, b) for a, b in checks):
+            raise AssertionError(f"{path}: evicted rows, slots or scores "
+                                 f"differ from the table's before the step")
+        dk = ev["dropped_keys"]
+        dropped = dk[dk != var.empty_key]
+        unplaced = fresh[~torch.isin(fresh, live_a)]
+        if not (dropped.numel() and torch.equal(dropped.sort().values,
+                                                unplaced.sort().values)):
+            raise AssertionError(f"{path}: dropped keys are not the fresh "
+                                 f"keys left out")
+        out["evicted"][path] = {"evicted": int(hit.sum()),
+                                "dropped": int(dropped.numel())}
+        del before, st, ev, ctx, emb
+    del full
+    torch.cuda.empty_cache()
+
+    # -- (d) the KV API: import_batch, accum, remove, clear --------------
+    n = SURFACE_IMPORT_N
+    keys_np = rng.permutation(np.unique(rng.integers(1, 1 << 62,
+                                                     size=n + n // 8)))[:n]
+    dup = rng.permutation(n)[: n // 20]  # 5% of the keys repeat another
+    keys_np[dup] = keys_np[rng.integers(0, n, size=dup.size)]
+    keys_np = keys_np.astype(np.int64)
+    cols = {c: rng.normal(size=(n, DIM)).astype(np.float32)
+            for c in ("value", "m", "v")}
+    sc_np = rng.integers(1, 1 << 20, size=n).astype(np.int32)
+    kv = de.create_slots(var, var.init(), opt)
+    cuda_ops.reset_launches()
+    on = {c: torch.from_numpy(a).to(dev) for c, a in cols.items()}
+    kv = var.import_batch(kv, torch.from_numpy(keys_np).to(dev),
+                          on["value"], torch.from_numpy(sc_np).to(dev),
+                          {"m": on["m"], "v": on["v"]})
+    uk, ridx = np.unique(keys_np[::-1], return_index=True)
+    last = n - 1 - ridx  # numpy reference: the last occurrence wins
+    if int(var.size(kv)) != uk.size:
+        raise AssertionError(f"import_batch placed {int(var.size(kv))} of "
+                             f"{uk.size} keys")
+    slot, _ = ht.find(spec, kv, torch.from_numpy(uk).to(dev))
+    rows = kv.rows_logical[slot.long()]
+    last_t = torch.from_numpy(last).to(dev)
+    for c, off in (("value", 0), ("m", kv.slot_offset("m")),
+                   ("v", kv.slot_offset("v"))):
+        if _same_bits(torch, rows[:, off:off + DIM], on[c][last_t]):
+            raise AssertionError(f"import_batch: {c} is not the last "
+                                 f"occurrence's")
+    if not np.array_equal(kv.scores[slot.long()].cpu().numpy(), sc_np[last]):
+        raise AssertionError("import_batch: scores are not the last "
+                             "occurrence's")
+    del rows
+    # accum: 65,536 ids, stored ones with duplicates and new ones; the
+    # exists guard marks 1% of the stored ones absent (stale): skipped
+    na = TABLE_N
+    stored_ids = uk[rng.integers(0, uk.size, size=na - na // 8)]
+    new_ids = np.arange(1, na // 8 + 1, dtype=np.int64) + (1 << 61)
+    ak = np.concatenate([stored_ids, new_ids])
+    old = rng.normal(size=(na, DIM)).astype(np.float32)
+    new = rng.normal(size=(na, DIM)).astype(np.float32)
+    exists = np.concatenate([np.ones(stored_ids.size, bool),
+                             np.zeros(new_ids.size, bool)])
+    stale_keys = np.unique(stored_ids)[::100]
+    exists[np.isin(ak, stale_keys)] = False
+    kv = var.accum(kv, torch.from_numpy(ak).to(dev),
+                   torch.from_numpy(old).to(dev),
+                   torch.from_numpy(new).to(dev),
+                   exists=torch.from_numpy(exists).to(dev), step=9)
+    out["launches"]["kv"] = _launched(cuda_ops, "(d)",
+                                      ["row_gather", "row_scatter"])
+    # numpy reference in f64: each stored key's imported value plus the
+    # sum of its deltas (stale keys unchanged); new keys their new value
+    su, inv = np.unique(stored_ids, return_inverse=True)
+    sums = np.zeros((su.size, DIM))
+    np.add.at(sums, inv, (new - old)[:stored_ids.size].astype(np.float64))
+    want_v = cols["value"][last[np.searchsorted(uk, su)]].astype(np.float64)
+    fresh_sum = ~np.isin(su, stale_keys)
+    want_v[fresh_sum] += sums[fresh_sum]
+    wk = np.concatenate([su, new_ids])
+    want_v = np.concatenate([want_v, new[stored_ids.size:]])
+    got, found = var.lookup(kv, torch.from_numpy(wk).to(dev),
+                            return_exists=True)
+    if not bool(found.all()):
+        raise AssertionError("accum lost a key")
+    got = got.cpu().numpy()
+    acc_err = float(np.abs(got - want_v).max())
+    if not np.allclose(got, want_v, rtol=SURFACE_RTOL, atol=1e-5):
+        raise AssertionError(f"accum: per-key sums off by {acc_err}")
+    stale_at = np.isin(wk, stale_keys)
+    if not np.array_equal(got[stale_at].view(np.int32),
+                          want_v[stale_at].astype(np.float32).view(np.int32)):
+        raise AssertionError("accum wrote a key its exists guard skips")
+    size_accum = int(var.size(kv))
+    rm = uk[::2]
+    kv = var.remove(kv, torch.from_numpy(rm).to(dev))
+    size_remove = int(var.size(kv))
+    if size_remove != size_accum - rm.size:
+        raise AssertionError(f"remove: {size_accum} -> {size_remove} keys, "
+                             f"{rm.size} removed")
+    kv = var.clear(kv)
+    if int(var.size(kv)) or bool(kv.rows.view(torch.int32).any()):
+        raise AssertionError("clear left keys or rows")
+    out["kv"] = {"imported": n, "distinct": int(uk.size),
+                 "accum_ids": na, "stale": int(stale_keys.size),
+                 "accum_max_abs_err": acc_err, "size_after_accum": size_accum,
+                 "size_after_remove": size_remove, "size_after_clear": 0}
+    del kv, on
+    torch.cuda.empty_cache()
+
+    # -- (e) plan_lookup_fast against plan_lookup's contract -------------
+    st = start
+    fast = {}
+    for name, keys in (("hit_unique", base), ("hit_dups", zipfs[0]),
+                       ("miss", base ^ (1 << 44))):
+        uniq, inv, (slot, found, ins, drop) = ht.plan_lookup_fast(spec, st,
+                                                                  keys)
+        u2, inv2, (s2, f2, i2, d2), _ = ht.plan_lookup(spec, st, keys)
+        inv, inv2 = inv.long(), inv2.long()
+        reps = uniq[found | ins | drop]
+        if not (torch.equal(uniq[inv], keys)
+                and reps.numel() == keys.unique().numel()
+                and torch.equal(slot[inv], s2[inv2])
+                and torch.equal(found[inv], f2[inv2])
+                and torch.equal(ins[inv], i2[inv2])):
+            raise AssertionError(f"plan_lookup_fast breaks plan_lookup's "
+                                 f"contract on the {name} batch")
+        fast[name] = {"distinct": int(reps.numel()),
+                      "inserted": int(ins.sum())}
+    if fast["miss"]["inserted"] == 0 or fast["hit_dups"]["inserted"]:
+        raise AssertionError(f"plan_lookup_fast batches: {fast}")
+    out["plan_lookup_fast"] = fast
+    return out
+
+
 def _dma_inputs(torch, dev, gen, cap, ch, n):
     """A [cap*ch, 128] table of random words; gather indices (random
     rows) and scatter indices (unique rows), each with sentinels,
@@ -979,6 +1331,7 @@ def ab_tools_phase(torch, cuda_ops, dev, gen, rate, card):
     from recommenders_addons_tpu_torch.ops import hashing
     from recommenders_addons_tpu_torch.tools import ab_kernel_cost as akc
     from recommenders_addons_tpu_torch.tools import ab_radix_plan as arp
+    from recommenders_addons_tpu_torch.tools import hist_bench
 
     # -- ab_fused: 2Mi rows of 1 KiB, unique indices, v >= 0 -------------
     cap, w, n = akc.CAP, akc.W, AB_N_CHECK
@@ -1029,14 +1382,25 @@ def ab_tools_phase(torch, cuda_ops, dev, gen, rate, card):
     bids = hashing.bucket_of(keys, nb)
     odd = torch.randint(-5000, 50000, (70001,), dtype=torch.int32,
                         device=dev, generator=gen)
+    big = hashing.bucket_of(torch.randint(1, 1 << 62, (HIST_N_BIG,),
+                                          device=dev, generator=gen), nb)
     h_err = 0
-    for b in (bids, odd):
+    for b in (bids, odd, odd[1:], big):  # odd[1:]: off a 16-byte boundary
         got = arp.pallas_hist(b, nb)
         lib = torch.bincount((b & 1023).long(), minlength=1024)
         h_err = max(h_err, _same_bits(torch, got, arp.radix_hist_plain(b)),
                     _same_bits(torch, got, lib.to(torch.int32)))
     if h_err:
         raise AssertionError("radix_hist disagrees with torch.bincount")
+    del big
+    # its times against the launch floor (an empty kernel) at 8,192,
+    # 65,536 and 4,194,304 ids, and its device operations per call
+    hist_times = hist_bench.main([])
+    one_op = {"kernels": 1, "memsets": 0, "others": 0}
+    ops = hist_times["graph_ops_per_call"]["radix_hist"]
+    if any(v != one_op for v in ops.values()):
+        raise AssertionError(f"radix_hist is not one device operation a "
+                             f"call: {ops}")
     low = (bids & 1023).long()
     h_ms = _time_ms(torch, lambda: arp.pallas_hist(bids, nb), 100)
     h_plain = _time_ms(torch, lambda: arp.radix_hist_plain(bids), 20)
@@ -1100,11 +1464,19 @@ def ab_tools_phase(torch, cuda_ops, dev, gen, rate, card):
         "library_call": "torch.bincount (on the masked ids)",
         "bound_ms": h_bound, "bound_by": h_by, "bytes": h_bytes, "ops": nt,
         "shape": f"N={nt} bucket ids of {nb} buckets, 1024 bins",
+        "ms_by_n": hist_times["ms"]["radix_hist"],
+        "bound_ms_by_n": hist_times["bound_ms"],
+        "launch_floor_ms": hist_times["launch_floor_ms"],
+        "device_ops_per_call": 1,
+        "graph_ops_by_n": ops,
+        "profiled_ops_per_call": hist_times["profiled_ops_per_call"][
+            "radix_hist"],
     }]
     summary = {"card": card, "fused_check_n": n,
                "fused_checks": {k: {"ulps_or_bits": u, "max_abs_err": e}
                                 for k, (u, e) in checks.items()},
-               "hist_check_n": [nt, 70001], "launches": launches,
+               "hist_check_n": [nt, 70001, 70000, HIST_N_BIG],
+               "hist_bench": hist_times, "launches": launches,
                "runs": runs}
     return results, summary
 
@@ -1144,6 +1516,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     table_step = table_step_phase(torch, cuda_ops, dev, args.seed)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    surface = training_surface_phase(torch, cuda_ops, dev, args.seed)
+    surface["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     dma_kernels, dma = dma_bench_phase(torch, cuda_ops, dev, gen, card)
     kernels += dma_kernels
     torch.cuda.empty_cache()
@@ -1152,6 +1528,8 @@ def main(argv=None) -> int:
     paths = {"serving": serving["launches"],
              "dlrm_training": training["launches"],
              "table_step": table_step["launches"],
+             **{f"training_surface_{p}": n
+                for p, n in surface["launches"].items()},
              "dma_bench": dma["launches"], **ab["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -1165,6 +1543,7 @@ def main(argv=None) -> int:
                                       mem_bytes_per_s=rate, card=card)}))
     print(json.dumps({"training": dict(training, table_step=table_step,
                                        card=card)}))
+    print(json.dumps({"training_surface": dict(surface, card=card)}))
     print(json.dumps({"dma_bench": dma}))
     print(json.dumps({"ab_tools": ab}))
     print(json.dumps({"kernels": kernels}))

@@ -166,7 +166,7 @@ DMA_SCATTER = _Kernel("dma_scatter", [_P, _I64, _I32, _P, _I64, _P, _I64,
 # the probes' kernels (tools/ab_kernel_cost.py, tools/ab_radix_plan.py)
 AB_FUSED = _Kernel("ab_fused", [_P, _I64, _P, _I64, _P, _P, _F32, _I32,
                                 _I32, _I32, _P])
-RADIX_HIST = _Kernel("radix_hist", [_P, _I64, _P, _P])
+RADIX_HIST = _Kernel("radix_hist", [_P, _I64, _P, _P, _I32, _P, _P])
 KERNELS = (ROW_GATHER, ROW_SCATTER, FUSED_UPDATE_SCATTER, DMA_GATHER,
            DMA_GATHER_GROUPED, DMA_SCATTER_GROUPED, DMA_SCATTER, AB_FUSED,
            RADIX_HIST)

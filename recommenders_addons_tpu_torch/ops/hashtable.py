@@ -19,12 +19,17 @@ shares its rows tensor with the state it returns. Key and score planes
 are written out of place.
 
 Ported: the serving path (probe, value gather, bulk upsert with eviction,
-dedup, export) and the training plan (``plan_lookup_train`` with its
-``plan_lookup`` miss branch, the duplicate probe, the packed-row layout
+dedup, export), the training plan (``plan_lookup_train`` with its
+``plan_lookup`` miss branch and its deferred-dedup hit branch,
+``plan_lookup_fast``, the duplicate probes, the packed-row layout
 helpers, slot columns, the key/score commits of the fused apply, the
-grad segment sum). Where the JAX package branches with ``lax.cond``, the
-port branches in Python on a value read back from the device (a host
-sync); each such read is marked ``# host sync``.
+grad combines ``segment_sum_rows`` and ``sorted_combine_batch``), and the
+rest of the write surface: commits with ``deltas`` (bp_v2) and
+``return_evicted``, ``accum``, ``dedup_sum``, ``scatter_packed``,
+``scatter_rows``, ``remove`` and ``clear``. Where the JAX package
+branches with ``lax.cond``, the port branches in Python on a value read
+back from the device (a host sync); each such read is marked
+``# host sync``.
 """
 
 from __future__ import annotations
@@ -543,6 +548,50 @@ def _dup_probe(n: int, cap: int, sidx: torch.Tensor):
     return pos, buf, n_distinct
 
 
+def _first_occurrence(sidx: torch.Tensor, n: int, cap: int) -> torch.Tensor:
+    """First batch position holding each value of ``sidx`` (slot indices
+    in ``[0, cap]``; ``cap`` = trash sentinel): ``rep [N]``, the position
+    of the first occurrence of ``sidx[i]``. One scatter-min into a
+    128-padded [C] buffer and a read-back."""
+    pos = torch.arange(n, dtype=torch.int32, device=sidx.device)
+    size = (cap + 1 + _LANES - 1) // _LANES * _LANES
+    first = torch.full((size,), n, dtype=torch.int32,
+                       device=sidx.device).scatter_reduce(
+        0, sidx.long(), pos, "amin")
+    return take_elem(first, sidx)
+
+
+def plan_lookup_fast(spec: TableSpec, state: TableState, keys: torch.Tensor):
+    """:func:`plan_lookup` with fast paths for all-hit batches: each
+    key's slot is then already a collision-free identity, so the dedup is
+    one scatter of positions into slot space (:func:`_dup_probe`), and a
+    dup-free batch skips even its read-back (uniq IS the batch, inverse
+    IS the iota). A batch with a miss goes through :func:`plan_lookup`.
+
+    Returns ``(uniq, inverse, (slot, found, inserted, dropped))`` with
+    :func:`plan_lookup`'s contract, except that on the fast paths each
+    representative keeps its batch position (EMPTY elsewhere). The JAX
+    package's two ``lax.cond``s are host ``if``s here."""
+    flat = keys.reshape(-1)
+    n = flat.shape[0]
+    cap = state.capacity
+    slot_f, found_f = find(spec, state, flat)
+    valid = flat != spec.empty_key
+    if not bool((found_f | ~valid).all()):  # host sync: a miss
+        uniq, inverse, plan, _ = plan_lookup(spec, state, flat)
+        return uniq, inverse, plan
+    sidx = torch.where(found_f, slot_f, cap)  # misses/EMPTY -> trash
+    pos, buf, n_distinct = _dup_probe(n, cap, sidx)
+    zeros = torch.zeros(n, dtype=torch.bool, device=flat.device)
+    if bool(n_distinct == found_f.sum()):  # host sync: no duplicate
+        return flat, pos, (slot_f, found_f, zeros, zeros)
+    rep = take_elem(buf, sidx)
+    is_rep = (rep == pos) & found_f
+    uniq = torch.where(is_rep, flat, spec.empty_key)
+    inverse = torch.where(found_f, rep, pos)
+    return uniq, inverse, (slot_f, is_rep, zeros, zeros)
+
+
 def _unsigned_order(x: torch.Tensor, width: int) -> torch.Tensor:
     """int64 holding unsigned ``width``-bit values -> int64 whose signed
     order is their unsigned order (flip the sign bit of 64-bit values)."""
@@ -678,10 +727,15 @@ def plan_lookup_train(spec: TableSpec, state: TableState, keys: torch.Tensor,
       that score scatter as its duplicate probe: the number of entries
       that newly equal the constant counts the distinct touched slots.
 
+    ``defer_dedup`` (with ``score_const`` only, as in the JAX package):
+    the scored hit branch defers the dedup to the apply
+    (:func:`sorted_combine_batch`) and keeps the occurrence contract on
+    every hit batch: uniq IS the batch, ``found`` marks every occurrence,
+    the gather is per occurrence, and ``no_dups`` still comes out, so the
+    apply can skip the combine on a dup-free batch.
+
     ``no_dups`` and ``rows_aligned`` are Python bools. Key and score planes
     are new tensors; ``state`` is not changed."""
-    if defer_dedup:
-        raise NotImplementedError("defer_dedup is not ported yet")
     flat = keys.reshape(-1)
     n = flat.shape[0]
     dev = flat.device
@@ -706,6 +760,11 @@ def plan_lookup_train(spec: TableSpec, state: TableState, keys: torch.Tensor,
             before = (state.scores == sc).sum()
             new_scores = _set_drop(state.scores, sidx, sc_vec)
             no_dups = bool((new_scores == sc).sum() - before == n_found)
+            if defer_dedup:
+                packed = gather_fn(state, slot_f, found_f)
+                return (flat, pos, (slot_f, found_f, zeros, zeros), packed,
+                        no_dups, True, state.key_lo, state.key_hi,
+                        new_scores)
         else:
             pos, buf, n_distinct = _dup_probe(n, cap, sidx)
             no_dups = bool(n_distinct == n_found)  # host sync
@@ -844,13 +903,19 @@ def _plan_writes(spec: TableSpec, state: TableState, keys: torch.Tensor):
 
 
 def _pack_rows(state: TableState, n: int, values: Optional[torch.Tensor],
-               old_packed: torch.Tensor, inserted: torch.Tensor,
-               slot_rows: Optional[Dict[str, torch.Tensor]] = None
-               ) -> torch.Tensor:
-    """The new packed [N, W] rows of a commit: ``values`` in the value
-    columns; slot columns from ``slot_rows`` where given, else kept where
-    found and reset to their fresh fill where inserted (eviction victims
-    carry stale slot state)."""
+               slot_rows: Optional[Dict[str, torch.Tensor]],
+               old_packed: torch.Tensor, found: torch.Tensor,
+               inserted: torch.Tensor,
+               deltas: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The new packed [N, W] rows of a commit:
+
+    * value columns: ``values`` (assign) and/or ``old + deltas`` where
+      found (accum; ``values``, else the delta, where not);
+    * slot columns: ``slot_rows[name]`` where given, else kept where found
+      and reset to their fresh fill where inserted (eviction victims carry
+      stale slot state).
+
+    May write ``old_packed`` in place (a commit's own gathered buffer)."""
     d = state.dim
     dt = state.value_dtype
     out = old_packed
@@ -859,8 +924,13 @@ def _pack_rows(state: TableState, n: int, values: Optional[torch.Tensor],
         for i, nm in enumerate(state.slot_names):
             fresh[:, d * (1 + i): d * (2 + i)] = state.slot_init(nm)
         out = torch.where(inserted[:, None], fresh, out)
-    if values is not None:
-        out[:, :d] = values.to(dt)  # ``out`` is this commit's own buffer
+    if deltas is not None:
+        old_vals = torch.where(found[:, None], old_packed[:, :d], 0)
+        acc = old_vals + deltas.to(dt)
+        new = deltas if values is None else values
+        out[:, :d] = torch.where(found[:, None], acc, new.to(dt))
+    elif values is not None:
+        out[:, :d] = values.to(dt)
     for nm, rows_nm in (slot_rows or {}).items():
         if nm in state.slot_names:
             off = state.slot_offset(nm)
@@ -870,38 +940,83 @@ def _pack_rows(state: TableState, n: int, values: Optional[torch.Tensor],
 
 def commit(spec: TableSpec, state: TableState, keys: torch.Tensor,
            values: Optional[torch.Tensor] = None,
+           deltas: Optional[torch.Tensor] = None,
+           slot_rows: Optional[Dict[str, torch.Tensor]] = None,
            scores: Optional[torch.Tensor] = None, *,
-           score_mode: str = "assign") -> TableState:
+           score_mode: str = "assign", return_evicted: bool = False):
     """One planned, conflict-free batch write: keys + packed rows (+scores)
     in ONE row-scatter (plus the [C]-column key/score writes).
-    ``score_mode``: ``"assign"`` (LRU-style) or ``"add"`` (LFU-style).
+
+    * ``values``: insert-or-assign;
+    * ``deltas``: insert-or-accum (bp_v2): added to existing rows, and
+      ``values`` (or the delta) written for missing keys;
+    * ``slot_rows``: optimizer slot rows of every placed key;
+    * ``score_mode``: ``"assign"`` (LRU-style) or ``"add"`` (LFU-style);
+    * ``return_evicted``: also return the rows that score eviction
+      displaces, ``(state, evicted)`` (see :func:`commit_planned`).
+
     Precondition: keys deduplicated; EMPTY-sentinel entries are ignored."""
     plan = _plan_writes(spec, state, keys)
     return commit_planned(spec, state, keys, plan, values=values,
-                          scores=scores, score_mode=score_mode)
+                          deltas=deltas, slot_rows=slot_rows, scores=scores,
+                          score_mode=score_mode,
+                          return_evicted=return_evicted)
 
 
 def commit_planned(spec: TableSpec, state: TableState, keys: torch.Tensor,
                    plan, values: Optional[torch.Tensor] = None,
-                   scores: Optional[torch.Tensor] = None, *,
+                   deltas: Optional[torch.Tensor] = None,
                    slot_rows: Optional[Dict[str, torch.Tensor]] = None,
-                   score_mode: str = "assign") -> TableState:
+                   scores: Optional[torch.Tensor] = None, *,
+                   score_mode: str = "assign", return_evicted: bool = False):
     """Commit against a precomputed write plan (``_plan_writes``, or the
     training lookup's). The rows are written in place (see the module
-    docstring); ``slot_rows`` sets slot columns of every placed key."""
+    docstring). With ``return_evicted`` returns ``(state, evicted)``:
+    ``keys``, ``values``, ``scores`` and ``slots`` of the rows this
+    write's inserts displace (EMPTY / zeros elsewhere), read before the
+    write, and ``dropped_keys`` / ``dropped_values``, the input rows that
+    could not be placed, so a spill tier loses no row."""
     n = keys.shape[0]
-    slot, found, inserted, _ = plan
+    slot, found, inserted, dropped = plan
     write = found | inserted
     idx = torch.where(write, slot, state.capacity)  # sentinel => dropped
-    if values is not None and all(nm in (slot_rows or {})
-                                  for nm in state.slot_names):
-        # the write covers every column: the old rows are never read
+    full_cover = (values is not None and deltas is None
+                  and not return_evicted
+                  and all(nm in (slot_rows or {})
+                          for nm in state.slot_names))
+    if full_cover:  # the write covers every column: old rows never read
         old_packed = torch.zeros((n, state.width), dtype=state.value_dtype,
                                  device=state.device)
     else:
         old_packed = gather_packed(state, slot, write)
-    new_packed = _pack_rows(state, n, values, old_packed, inserted,
-                            slot_rows)
+
+    evicted = None
+    if return_evicted:
+        d = state.dim
+        vdt = state.value_dtype
+        old_keys = join_key(take_elem(state.key_lo, slot),
+                            take_elem(state.key_hi, slot)).to(keys.dtype)
+        displaced = inserted & (old_keys != spec.empty_key)
+        new = values if values is not None else deltas
+        dv = (torch.where(dropped[:, None], new.to(vdt), 0)
+              if new is not None
+              else torch.zeros((n, d), dtype=vdt, device=state.device))
+        evicted = {
+            "keys": torch.where(displaced, old_keys, spec.empty_key),
+            "values": torch.where(displaced[:, None], old_packed[:, :d], 0),
+            "scores": torch.where(displaced, take_elem(state.scores, slot),
+                                  0),
+            "slots": {nm: torch.where(
+                displaced[:, None],
+                old_packed[:, state.slot_offset(nm):
+                           state.slot_offset(nm) + d], 0)
+                for nm in state.slot_names},
+            "dropped_keys": torch.where(dropped, keys, spec.empty_key),
+            "dropped_values": dv,
+        }
+
+    new_packed = _pack_rows(state, n, values, slot_rows, old_packed, found,
+                            inserted, deltas=deltas)
     new_rows = _scatter_rows_state(state, idx, new_packed)
 
     k_lo, k_hi = split_key(keys)
@@ -910,12 +1025,15 @@ def commit_planned(spec: TableSpec, state: TableState, keys: torch.Tensor,
     new_sc = scores.to(spec.score_dtype)
     if score_mode == "add":
         new_sc = new_sc + torch.where(found, take_elem(state.scores, slot), 0)
-    return state.replace(
+    new_state = state.replace(
         key_lo=_set_drop(state.key_lo, idx, k_lo),
         key_hi=_set_drop(state.key_hi, idx, k_hi),
         rows=new_rows,
         scores=_set_drop(state.scores, idx, new_sc),
     )
+    if return_evicted:
+        return new_state, evicted
+    return new_state
 
 
 def commit_keys_scores(spec: TableSpec, state: TableState,
@@ -963,6 +1081,94 @@ def upsert(spec: TableSpec, state: TableState, keys: torch.Tensor,
     lowest-score slot of a full bucket."""
     return commit(spec, state, keys, values=values, scores=scores,
                   score_mode=score_mode)
+
+
+def accum(spec: TableSpec, state: TableState, keys: torch.Tensor,
+          deltas: torch.Tensor, values_for_new: Optional[torch.Tensor] = None,
+          scores: Optional[torch.Tensor] = None, *,
+          score_mode: str = "assign") -> TableState:
+    """bp_v2 delta write: add ``deltas`` to existing rows; insert
+    ``values_for_new`` (or the delta itself) for missing keys."""
+    return commit(spec, state, keys, values=values_for_new, deltas=deltas,
+                  scores=scores, score_mode=score_mode)
+
+
+def _scores_at(state: TableState, idx: torch.Tensor, slot: torch.Tensor,
+               mask: torch.Tensor, scores: Optional[torch.Tensor],
+               score_mode: str) -> torch.Tensor:
+    """The score plane with ``scores`` written at ``idx`` (``"add"``:
+    added to the stored scores where ``mask``)."""
+    if scores is None:
+        return state.scores
+    scores = scores.to(state.scores.dtype)
+    if score_mode == "add":
+        scores = scores + torch.where(mask, take_elem(state.scores, slot), 0)
+    return _set_drop(state.scores, idx, scores)
+
+
+def scatter_packed(state: TableState, slot: torch.Tensor, mask: torch.Tensor,
+                   packed_rows: torch.Tensor,
+                   scores: Optional[torch.Tensor] = None, *,
+                   score_mode: str = "assign") -> TableState:
+    """Conflict-free writeback of logical PACKED [N, W] rows to known
+    slots (where ``mask``), through the row scatter (in place)."""
+    idx = torch.where(mask, slot, state.capacity)
+    new_rows = _scatter_rows_state(state, idx, packed_rows)
+    return state.replace(rows=new_rows, scores=_scores_at(
+        state, idx, slot, mask, scores, score_mode))
+
+
+def scatter_rows(spec: TableSpec, state: TableState, slot: torch.Tensor,
+                 mask: torch.Tensor, values: Optional[torch.Tensor] = None,
+                 scores: Optional[torch.Tensor] = None,
+                 slot_rows: Optional[Dict[str, torch.Tensor]] = None, *,
+                 score_mode: str = "assign") -> TableState:
+    """Writeback of value and slot rows to known slots: the packed rows
+    are gathered, their given columns replaced, and scattered back. With
+    only ``scores`` given, a score refresh (no row traffic)."""
+    if values is None and not slot_rows:
+        idx = torch.where(mask, slot, state.capacity)
+        return state.replace(scores=_scores_at(state, idx, slot, mask,
+                                               scores, score_mode))
+    packed = gather_packed(state, slot, mask)
+    d = state.dim
+    if values is not None:
+        packed[:, :d] = values.to(packed.dtype)
+    for nm, rows_nm in (slot_rows or {}).items():
+        if nm in state.slot_names:
+            off = state.slot_offset(nm)
+            packed[:, off:off + d] = rows_nm.to(packed.dtype)
+    return scatter_packed(state, slot, mask, packed, scores,
+                          score_mode=score_mode)
+
+
+def remove(spec: TableSpec, state: TableState,
+           keys: torch.Tensor) -> TableState:
+    """Delete keys: their key planes go EMPTY and their scores 0 (the rows
+    stay; nothing reads a row whose key is EMPTY). Bucket-local insertion
+    means removal never breaks a probe."""
+    slot, found = find(spec, state, keys)
+    idx = torch.where(found, slot, state.capacity)
+    e_lo, e_hi = _split_int(spec.empty_key)
+    n = keys.shape[0]
+    return state.replace(
+        key_lo=_set_drop(state.key_lo, idx, state.key_lo.new_full((n,), e_lo)),
+        key_hi=_set_drop(state.key_hi, idx, state.key_hi.new_full((n,), e_hi)),
+        scores=_set_drop(state.scores, idx, state.scores.new_zeros(n)))
+
+
+def clear(spec: TableSpec, state: TableState) -> TableState:
+    """Empty the table: EMPTY key planes, zero scores, and the rows
+    zeroed IN PLACE (the port's rule for ``rows``)."""
+    e_lo, e_hi = _split_int(spec.empty_key)
+    cap = state.capacity
+    return state.replace(
+        key_lo=torch.full((cap,), e_lo, dtype=torch.int32,
+                          device=state.device),
+        key_hi=torch.full((cap,), e_hi, dtype=torch.int32,
+                          device=state.device),
+        rows=state.rows.zero_(),
+        scores=torch.zeros_like(state.scores))
 
 
 # ---------------------------------------------------------------------------
@@ -1043,10 +1249,73 @@ def segment_sum_rows(g: torch.Tensor, seg: torch.Tensor,
     """``out[t] = sum(g[i] for seg[i] == t)``, rows with ``seg`` outside
     ``[0, num_segments)`` dropped: the grad combine over duplicate ids.
     The JAX package's one-hot matmul per 128-row chunk is a TPU matrix-unit
-    device; here it is one ``index_add_`` (atomic adds on CUDA, so the sums
-    are taken in no fixed order)."""
+    device. Here the rows are sorted by segment and summed as differences
+    of f64 prefix sums at the segments' ends: no atomics, so the same
+    bits on every run (``index_add_``'s atomic adds order a segment's sum
+    differently from run to run), and no segment is summed serially
+    (an accumulating ``index_put_`` adds each segment's rows in one warp,
+    which a zipf batch's hot id turns into thousands of steps). The f64
+    prefix keeps each sum within an f32 rounding of the exact one; it is
+    taken along the last axis (one parallel scan per column), since a
+    scan along the first axis runs each column serially."""
     seg = seg.reshape(-1).long()
     idx = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
-    out = torch.zeros((num_segments + 1, g.shape[-1]), dtype=g.dtype,
-                      device=g.device)
-    return out.index_add_(0, idx, g)[:num_segments]
+    srt, order = torch.sort(idx, stable=True)
+    # segment t is sorted rows [bounds[t], bounds[t + 1]) (no host sync,
+    # unlike a bincount's)
+    bounds = torch.searchsorted(srt, torch.arange(num_segments + 1,
+                                                  device=g.device))
+    cols = g[order].to(torch.float64).t().contiguous()  # [D, N]
+    cs = torch.cat([cols.new_zeros((cols.shape[0], 1)),
+                    cols.cumsum(dim=1)], dim=1)
+    sums = cs[:, bounds[1:]] - cs[:, bounds[:-1]]
+    return sums.to(g.dtype).t().contiguous()
+
+
+def sorted_combine_batch(g: torch.Tensor, slot: torch.Tensor,
+                         found: torch.Tensor):
+    """Duplicate-grad combine for the OCCURRENCE contract (deferred
+    dedup): ``(g [N, D], slot [N], found [N])``, one entry per batch
+    occurrence -> ``(combined [N, D], rep [N])``. Each touched row's total
+    gradient lands at one of its occurrences, its representative, the
+    FIRST in batch order (``rep`` marks them); every other position
+    holds zeros.
+
+    The JAX package collapses 128-row chunks of the slot-sorted batch with
+    one-hot matmuls (a TPU matrix-unit device) and carries groups across
+    chunks with a scan. Here: a stable sort by slot makes duplicates
+    adjacent, each group's first entry its first occurrence, and
+    :func:`segment_sum_rows` adds every found occurrence onto its group's
+    first (the same bits on every run)."""
+    n = g.shape[0]
+    dev = g.device
+    sent = torch.iinfo(torch.int32).max
+    sidx = torch.where(found, slot.to(torch.int32), sent)
+    s_s, order = torch.sort(sidx, stable=True)
+    is_start = torch.ones(n, dtype=torch.bool, device=dev)
+    is_start[1:] = s_s[1:] != s_s[:-1]
+    pos = torch.arange(n, device=dev)
+    first = order[torch.cummax(torch.where(is_start, pos, 0), dim=0).values]
+    live = s_s != sent
+    tgt = torch.empty(n, dtype=torch.int64, device=dev)
+    tgt[order] = torch.where(live, first, n)  # not found: dropped
+    rep = torch.empty(n, dtype=torch.bool, device=dev)
+    rep[order] = is_start & live
+    return segment_sum_rows(g, tgt, n), rep
+
+
+def dedup_sum(keys: torch.Tensor, arrays=(), size: Optional[int] = None):
+    """Dedup with the payload rows SUMMED per key (duplicate accum deltas:
+    each occurrence's delta is applied), in batch order as
+    :func:`segment_sum_rows` adds. Returns ``(unique_keys [size],
+    summed)``."""
+    flat = keys.reshape(-1)
+    n = flat.shape[0]
+    uniq, inverse = unique_static(flat, size=size)
+    u = uniq.shape[0]
+    summed = []
+    for a in arrays:
+        tail = tuple(a.shape[keys.dim():])
+        rows = a.reshape(n, -1)
+        summed.append(segment_sum_rows(rows, inverse, u).reshape((u,) + tail))
+    return uniq, tuple(summed)

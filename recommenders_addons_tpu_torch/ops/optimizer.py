@@ -13,11 +13,14 @@ every device):
   dim, whose slots existed at lookup): the optimizer runs inside the
   ``fused_update_scatter`` kernel, which reads the lookup's packed rows
   and writes the new rows straight into the table (``ops/cuda_ops.py``);
-* unfused (f16 and int8 tables): ``update`` on the looked-up rows, then
-  ``Variable.writeback`` (a gather and the row-scatter kernel).
+* unfused (f16 and int8 tables, and every ``bp_v2`` table): ``update``
+  on the looked-up rows, then ``Variable.writeback`` (a gather and the
+  row-scatter kernel).
 
-Waiting for a later slice: the optax adapter (``from_optax``) and the
-rows displaced by eviction (``return_evicted=True`` raises).
+A deferred-dedup lookup's duplicates are combined here, and
+``return_evicted=True`` returns the rows the apply's inserts displace.
+
+Waiting for a later slice: the optax adapter (``OptaxSparseOptimizer``).
 """
 
 from __future__ import annotations
@@ -257,30 +260,71 @@ def gather_slot_rows(var, state, ctx, opt) -> Dict[str, torch.Tensor]:
 
 def apply_gradients(var, state: hashtable.TableState, ctx, grads, opt,
                     step=0, epoch=0, already_unique: bool = False,
-                    return_evicted: bool = False) -> hashtable.TableState:
+                    return_evicted: bool = False):
     """Sparse apply: combine duplicate grads, run the row-wise optimizer,
     write rows, slots and scores. ``grads`` is the gradient of the
     ``emb`` output of ``embedding_lookup`` (any shape ending in ``dim``),
     or ``[U, dim]`` per unique row with ``already_unique=True``. The table
-    rows are written in place (the fused kernel, or the row scatter)."""
-    if return_evicted:
-        raise NotImplementedError("return_evicted is not ported yet")
+    rows are written in place (the fused kernel, or the row scatter).
+    ``return_evicted``: returns ``(state, evicted)``, the rows displaced
+    by this apply's inserts (keys, values, scores, slots) and the keys
+    that could not be placed, so a spill tier loses no row."""
     opt = resolve_for(opt, var)
     if not already_unique:
-        grads = var.reduce_gradient(ctx, grads)
+        if ctx.deferred:
+            # combine duplicate grads AND narrow the write mask to one
+            # representative per row; what follows takes the new ctx
+            grads, found_rep = var.reduce_gradient_deferred(ctx, grads)
+            ctx = dataclasses.replace(ctx, found=found_rep)
+        else:
+            grads = var.reduce_gradient(ctx, grads)
     state = create_slots(var, state, opt)
     if _can_fuse(var, state, ctx, opt):
         # padding rows (EMPTY keys) are neither found nor inserted: the
         # kernel writes their update to the trash row, so their grads
-        # need no masking
-        return _apply_fused(var, state, ctx, grads, opt, step, epoch)
+        # need no masking. The kernel writes the table in place, so the
+        # victims are read before it runs.
+        evicted = (_capture_evicted(var, state, ctx) if return_evicted
+                   else None)
+        new_state = _apply_fused(var, state, ctx, grads, opt, step, epoch)
+        return (new_state, evicted) if return_evicted else new_state
     valid = ctx.unique_keys != var.empty_key
     grads = torch.where(valid[:, None], grads, 0.0)
     slot_rows = gather_slot_rows(var, state, ctx, opt)
     new_rows, new_slot_rows = opt.update(ctx.rows, grads.to(ctx.rows.dtype),
                                          slot_rows, step)
     return var.writeback(state, ctx, new_rows, slot_rows=new_slot_rows,
-                         step=step, epoch=epoch)
+                         step=step, epoch=epoch,
+                         return_evicted=return_evicted)
+
+
+def _capture_evicted(var, state, ctx):
+    """The rows this apply's planned inserts displace, read from the
+    table before the fused kernel writes it: the victims' keys from the
+    key planes the apply starts from (``state``'s, not the lookup's
+    ``ctx.key_lo``/``key_hi``, which carry the new keys), their rows
+    gathered fresh (``ctx.packed`` holds the new keys' initial rows
+    there). Keys dropped for a full bucket keep their looked-up row."""
+    d = var.dim
+    old_keys = hashtable.join_key(
+        hashtable.take_elem(state.key_lo, ctx.slot),
+        hashtable.take_elem(state.key_hi, ctx.slot)).to(var.key_dtype)
+    displaced = ctx.inserted & (old_keys != var.empty_key)
+    victim = hashtable.gather_packed(state, ctx.slot, displaced)
+    return {
+        "keys": torch.where(displaced, old_keys, var.empty_key),
+        "values": torch.where(displaced[:, None], victim[:, :d], 0),
+        "scores": torch.where(
+            displaced, hashtable.take_elem(state.scores, ctx.slot), 0),
+        "slots": {nm: torch.where(
+            displaced[:, None],
+            victim[:, state.slot_offset(nm):state.slot_offset(nm) + d], 0)
+            for nm in state.slot_names},
+        "dropped_keys": torch.where(ctx.dropped, ctx.unique_keys,
+                                    var.empty_key),
+        "dropped_values": torch.where(
+            ctx.dropped[:, None], ctx.rows.to(state.value_dtype), 0),
+    }
 
 
 def _can_fuse(var, state, ctx, opt) -> bool:

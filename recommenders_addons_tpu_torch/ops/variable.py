@@ -4,15 +4,20 @@ the JAX package's ``ops/variable.py``.
 A ``Variable`` is a static description (hashable); all storage lives in
 an explicit ``TableState`` the caller threads through its calls, on the
 Variable's ``device`` (default CUDA). Inference: ``init``, ``lookup``,
-``upsert`` (LRU/LFU/EPOCH* scores), ``size``, ``export``. Training::
+``upsert`` (LRU/LFU/EPOCH*/CUSTOMIZED scores), ``size``, ``export``.
+Training::
 
     emb, ctx = var.embedding_lookup(state, ids, step=step)
     ... loss = f(emb); emb_grad = d loss / d emb ...
     state = var.apply_gradients(state, ctx, emb_grad, optimizer, step=step)
 
-Waiting for a later slice (they raise): ``bp_v2`` deltas, deferred
-dedup (``defer_dedup=True``, or ``TFRA_TPU_DEFER_DEDUP=1`` when it is
-None, on a lookup given a score), ``return_evicted``.
+with ``bp_v2`` deltas, deferred dedup (``defer_dedup=True``, or
+``TFRA_TPU_DEFER_DEDUP=1`` when it is None, on a lookup given a score)
+and ``return_evicted``. The direct KV API: ``accum``, ``import_batch``,
+``remove`` and ``clear``.
+
+Waiting for a later slice: ``trainable``, ``grow`` and
+``export_chunked``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import dataclasses
 import enum
 import os
 import zlib
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -95,8 +100,11 @@ class Variable:
     device: Any = None  # None -> CUDA
     # per-key init seed; None -> zlib.crc32(name), as the JAX package
     seed: Optional[int] = None
-    # accepted for parity; True raises until the deltas path is ported
+    # writeback accumulates deltas (new - looked-up rows) instead of
+    # assigning: concurrent trainers' updates add up
     bp_v2: bool = False
+    # keys -> scores for the CUSTOMIZED strategy (torch tensors in and out)
+    gen_scores_fn: Optional[Callable] = None
     defer_dedup: Optional[bool] = None
 
     # every value dtype whose container is 32-bit, which the row kernels
@@ -158,7 +166,8 @@ class Variable:
         """(scores [N], score_mode) per the evict strategy: LRU stamps
         ``step`` (assign), LFU adds ``counts`` (default 1); the EPOCH*
         strategies put the epoch above the step (bit 32 of int64 scores,
-        bit 20 of int32 ones), each clamped to its field, never wrapped."""
+        bit 20 of int32 ones), each clamped to its field, never wrapped;
+        CUSTOMIZED assigns ``gen_scores_fn(keys)``."""
         n = keys.shape[0]
         dev = keys.device
         sdt = self.spec.score_dtype
@@ -178,8 +187,13 @@ class Variable:
             return s.expand(n).clone(), "assign"
         if self.evict_strategy == EvictStrategy.EPOCHLFU:
             return efield + c, "add"
-        raise NotImplementedError(
-            f"{self.evict_strategy} scores are not ported yet")
+        if self.evict_strategy == EvictStrategy.CUSTOMIZED:
+            if self.gen_scores_fn is None:
+                raise ValueError(
+                    "CUSTOMIZED evict strategy needs gen_scores_fn "
+                    "(parity: HkvHashTableConfig.gen_scores_fn)")
+            return self.gen_scores_fn(keys).to(sdt), "assign"
+        raise ValueError(self.evict_strategy)
 
     def lookup(self, state: TableState, ids, *,
                return_exists: bool = False,
@@ -247,14 +261,12 @@ class Variable:
         Pass the training ``step`` (and ``epoch`` for EPOCHLRU) here and
         the batch's scores are committed at lookup time, where the score
         scatter doubles as the duplicate probe; the fused apply then
-        leaves scores alone. ``emb`` is a view of the lookup's packed rows
-        (``ctx.packed``), which the apply reads."""
+        leaves scores alone. Such a scored lookup defers the dedup to the
+        apply when :attr:`defer_dedup_on` (``ctx.deferred``: ``found``
+        marks every occurrence of a hit batch). ``emb`` is a view of the
+        lookup's packed rows (``ctx.packed``), which the apply reads."""
         score_const = self.lookup_score_const(step, epoch)
-        # the reference defers only a scored lookup
-        if self.bp_v2 or (self.defer_dedup_on and score_const is not None):
-            raise NotImplementedError(
-                "bp_v2 and defer_dedup (or TFRA_TPU_DEFER_DEDUP=1) on a "
-                "scored lookup are not ported yet")
+        defer = self.defer_dedup_on and score_const is not None
         ids = torch.as_tensor(ids)
         flat = self._flat_kv(ids, device=state.device)
         n = flat.shape[0]
@@ -263,7 +275,7 @@ class Variable:
             self.spec, state, flat,
             lambda u: initializers.materialize_rows(
                 self.initializer, base, u, self.dim, self.value_dtype),
-            score_const=score_const)
+            score_const=score_const, defer_dedup=defer)
         (uniq, inverse, (slot, found, inserted, dropped), packed, no_dups,
          rows_aligned, new_lo, new_hi) = out[:8]
         rows = hashtable.packed_value_rows(state, n, packed)
@@ -273,7 +285,7 @@ class Variable:
             dropped=dropped, no_dups=no_dups, rows_aligned=rows_aligned,
             key_lo=new_lo, key_hi=new_hi,
             scores=out[8] if score_const is not None else None,
-            ids_shape=tuple(ids.shape))
+            ids_shape=tuple(ids.shape), deferred=defer)
         emb = rows if rows_aligned else rows[inverse.long()]
         return emb.reshape(tuple(ids.shape) + (self.dim,)), ctx
 
@@ -281,7 +293,12 @@ class Variable:
         """Gradient of the whole ``emb`` -> per-unique-row grads (duplicate
         ids summed)."""
         if ctx.deferred:
-            raise NotImplementedError("deferred dedup is not ported yet")
+            raise ValueError(
+                "this LookupContext deferred duplicate handling to the "
+                "apply (ctx.found marks every occurrence): use "
+                "reduce_gradient_deferred (or apply_gradients, which "
+                "calls it) so duplicates are combined AND the write mask "
+                "is narrowed to one representative per row")
         u = ctx.unique_keys.shape[0]
         g = emb_grad.reshape(-1, self.dim)
         inv = ctx.inverse.reshape(-1)
@@ -292,30 +309,57 @@ class Variable:
             return g
         return hashtable.segment_sum_rows(g, inv, u)
 
+    def reduce_gradient_deferred(self, ctx: LookupContext,
+                                 emb_grad: torch.Tensor):
+        """Grad combine of a deferred-dedup context (``ctx.deferred``).
+        Returns ``(grads [N, D], found [N])``: duplicate occurrences' grads
+        summed onto one representative each and ``found`` narrowed to the
+        representatives, so the write touches every row once. Three cases,
+        by the plan's own bools: a dup-free batch passes through; an
+        all-hit batch with duplicates takes :func:`sorted_combine_batch`;
+        a miss batch with duplicates came out of ``plan_lookup`` with the
+        representative/inverse contract built, and keeps the inverse
+        combine."""
+        g = emb_grad.reshape(-1, self.dim)
+        if ctx.no_dups:
+            return g, ctx.found
+        if ctx.rows_aligned:
+            return hashtable.sorted_combine_batch(g, ctx.slot, ctx.found)
+        n = ctx.found.shape[0]
+        return (hashtable.segment_sum_rows(g, ctx.inverse.reshape(-1), n),
+                ctx.found)
+
     def writeback(self, state: TableState, ctx: LookupContext,
                   new_rows: torch.Tensor,
                   slot_rows: Optional[Dict[str, torch.Tensor]] = None,
-                  step=0, epoch=0) -> TableState:
+                  step=0, epoch=0, return_evicted: bool = False):
         """Write trained rows (and optimizer slot rows) back through the
-        lookup's write plan; the rows are written in place."""
-        if self.bp_v2:
-            raise NotImplementedError("bp_v2 deltas are not ported yet")
+        lookup's write plan; the rows are written in place. ``bp_v2``:
+        delta-accumulate (the stored row plus ``new_rows - ctx.rows``)
+        instead of assigning. ``return_evicted``: also return the rows the
+        write's inserts displace, ``(state, evicted)``. A deferred context
+        must be narrowed first (``reduce_gradient_deferred``), as
+        ``apply_gradients`` does."""
+        # ``ctx.rows`` is a view of the lookup's packed rows: take the
+        # deltas before anything is written
+        deltas = new_rows - ctx.rows if self.bp_v2 else None
         scores, mode = self.scores_for(ctx.unique_keys, step=step,
                                        epoch=epoch)
+        kw = dict(values=new_rows, deltas=deltas, slot_rows=slot_rows,
+                  scores=scores, score_mode=mode,
+                  return_evicted=return_evicted)
         if ctx.inserted is None:
-            plan = hashtable._plan_writes(self.spec, state, ctx.unique_keys)
-        else:
-            plan = (ctx.slot, ctx.found, ctx.inserted, ctx.dropped)
-        return hashtable.commit_planned(
-            self.spec, state, ctx.unique_keys, plan, values=new_rows,
-            slot_rows=slot_rows, scores=scores, score_mode=mode)
+            return hashtable.commit(self.spec, state, ctx.unique_keys, **kw)
+        plan = (ctx.slot, ctx.found, ctx.inserted, ctx.dropped)
+        return hashtable.commit_planned(self.spec, state, ctx.unique_keys,
+                                        plan, **kw)
 
     def apply_gradients(self, state: TableState, ctx: LookupContext, grads,
                         optimizer, step=0, epoch=0,
-                        return_evicted: bool = False) -> TableState:
+                        return_evicted: bool = False):
         """Sparse optimizer step on the touched rows (ops/optimizer.py).
         ``grads`` is the gradient with respect to ``emb`` (reduced over
-        duplicates here)."""
+        duplicates here). ``return_evicted``: ``(state, evicted)``."""
         from recommenders_addons_tpu_torch.ops import optimizer as opt_lib
 
         return opt_lib.apply_gradients(
@@ -324,15 +368,72 @@ class Variable:
 
     # -- direct KV ops ---------------------------------------------------
 
-    def upsert(self, state: TableState, keys, values, step=0,
-               epoch=0) -> TableState:
+    def upsert(self, state: TableState, keys, values, step=0, epoch=0,
+               return_evicted: bool = False):
         """Insert-or-assign; duplicate keys resolve last-write-wins. The
         rows are written in place (hashtable module docstring)."""
         keys, values = self._flat_kv(keys, values, device=state.device)
         uniq, (uvals,) = hashtable.dedup_last(keys, (values,))
         scores, mode = self.scores_for(uniq, step=step, epoch=epoch)
         return hashtable.commit(self.spec, state, uniq, values=uvals,
-                                scores=scores, score_mode=mode)
+                                scores=scores, score_mode=mode,
+                                return_evicted=return_evicted)
+
+    def accum(self, state: TableState, keys, old_values, new_values,
+              exists=None, step=0, epoch=0) -> TableState:
+        """Writes ``new - old`` deltas for existing keys and ``new`` values
+        for missing ones. Duplicate keys: the deltas SUM per key, and a
+        missing key inserts its last occurrence's ``new`` value.
+        ``exists`` (as captured at lookup): a key is written only if its
+        presence in the table still matches, so a key evicted or inserted
+        by another writer in between is skipped, never corrupted."""
+        keys, old_values = self._flat_kv(keys, old_values,
+                                         device=state.device)
+        _, new_values = self._flat_kv(keys, new_values, device=state.device)
+        uniq, (udelta,) = hashtable.dedup_sum(keys,
+                                              (new_values - old_values,))
+        if exists is not None:
+            ex = torch.as_tensor(exists).to(state.device).reshape(-1).to(
+                torch.int32)
+            _, (unew, uex) = hashtable.dedup_last(keys, (new_values, ex))
+            _, found = hashtable.find(self.spec, state, uniq)
+            uniq = torch.where(found == (uex != 0), uniq, self.empty_key)
+        else:
+            _, (unew,) = hashtable.dedup_last(keys, (new_values,))
+        scores, mode = self.scores_for(uniq, step=step, epoch=epoch)
+        return hashtable.accum(self.spec, state, uniq, deltas=udelta,
+                               values_for_new=unew, scores=scores,
+                               score_mode=mode)
+
+    def import_batch(self, state: TableState, keys, values, scores=None,
+                     slot_rows: Optional[Dict[str, torch.Tensor]] = None,
+                     return_evicted: bool = False):
+        """Bulk restore of (key, value, score, slot-row) tuples, the
+        checkpoint-load path; duplicate keys keep their last occurrence.
+        Scores are assigned as given (default 1)."""
+        keys, values = self._flat_kv(keys, values, device=state.device)
+        sdt = self.spec.score_dtype
+        if scores is None:
+            scores = torch.ones(keys.shape, dtype=sdt, device=state.device)
+        scores = torch.as_tensor(scores).to(device=state.device,
+                                            dtype=sdt).reshape(-1)
+        names = tuple(sorted((slot_rows or {}).keys()))
+        cols = tuple(self._flat_kv(keys, slot_rows[nm],
+                                   device=state.device)[1] for nm in names)
+        uniq, picked = hashtable.dedup_last(keys, (values, scores) + cols)
+        return hashtable.commit(
+            self.spec, state, uniq, values=picked[0],
+            slot_rows=dict(zip(names, picked[2:])) or None,
+            scores=picked[1], score_mode="assign",
+            return_evicted=return_evicted)
+
+    def remove(self, state: TableState, keys) -> TableState:
+        return hashtable.remove(self.spec, state,
+                                self._flat_kv(keys, device=state.device))
+
+    def clear(self, state: TableState) -> TableState:
+        """Empty the table (its rows zeroed in place)."""
+        return hashtable.clear(self.spec, state)
 
     def size(self, state: TableState) -> torch.Tensor:
         return hashtable.size(self.spec, state)

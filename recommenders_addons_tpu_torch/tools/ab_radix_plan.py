@@ -34,6 +34,7 @@ time (the JAX tool timed one fused scan of the plans).
 from __future__ import annotations
 
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -51,6 +52,11 @@ STEPS = 10
 REPS = 7
 # the reference's SMEM cap: one radix digit of 1,024 buckets
 _HIST_NB = 1024
+# the histogram kernel's grid: at most this many clusters of 8 blocks
+# (256 blocks, about two an SM), each adding a partial row
+HIST_MAX_CLUSTERS = 32
+_TICKETS: dict = {}  # (device index, stream) -> the kernel's ticket
+_TICKETS_LOCK = threading.Lock()
 # a step launches tens of small kernels (the int64 mix alone is a dozen):
 # the device spin ahead of a timed run counts this many calls per step,
 # so that it outlasts the host's queueing of every launch
@@ -91,18 +97,39 @@ def radix_hist_plain(bids: torch.Tensor) -> torch.Tensor:
     return torch.bincount(low.long(), minlength=_HIST_NB).to(torch.int32)
 
 
-def pallas_hist(bids: torch.Tensor, nb: int) -> torch.Tensor:
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The kernel's ticket for ``device``'s current stream: one int32,
+    zeroed once here and left at 0 by every launch. One per stream, so
+    two launches running at once on two streams never share one; those
+    on one stream run one after the other."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    with _TICKETS_LOCK:
+        t = _TICKETS.get(key)
+        if t is None:
+            t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                            device=device)
+    return t
+
+
+def pallas_hist(bids: torch.Tensor, nb: int, *,
+                max_clusters: int = HIST_MAX_CLUSTERS) -> torch.Tensor:
     """``[1024]`` int32 histogram of the low 10 bits of int32 ``bids``
-    (the JAX tool's ``pallas_hist``; ``nb`` is ignored there too)."""
+    (the JAX tool's ``pallas_hist``; ``nb`` is ignored there too). On a
+    card: one launch of ``csrc/radix_hist.cu``, its grid at most
+    ``max_clusters`` clusters, with a scratch row per cluster and the
+    stream's ticket."""
     del nb
     b32 = bids.reshape(-1).to(torch.int32).contiguous()
     if not cuda_ops._is_cuda(b32):
         return radix_hist_plain(b32)
-    out = torch.empty(_HIST_NB, dtype=torch.int32, device=b32.device)
-    n = b32.shape[0]
-    if not n:
-        return out.zero_()
-    cuda_ops.RADIX_HIST.launch(b32.device, b32.data_ptr(), n, out.data_ptr())
+    dev = b32.device
+    out = torch.empty(_HIST_NB, dtype=torch.int32, device=dev)
+    partials = torch.empty(max_clusters * _HIST_NB, dtype=torch.int32,
+                           device=dev)
+    cuda_ops.RADIX_HIST.launch(dev, b32.data_ptr(), b32.shape[0],
+                               out.data_ptr(), partials.data_ptr(),
+                               max_clusters, _ticket(dev).data_ptr())
     return out
 
 

@@ -31,6 +31,7 @@ from recommenders_addons_tpu_torch.tools import (
     dma_bench,
     fused_sweep,
     gather_sweep,
+    hist_bench,
 )
 
 LANES = 128
@@ -547,6 +548,51 @@ def test_gather_sweep_needs_a_card():
     with pytest.raises(RuntimeError):
         gather_sweep.main([], device="cpu")
 
+
+@pytest.mark.gpu
+def test_grad_combines_are_deterministic_on_card(cuda):
+    """The duplicate-grad combines (``segment_sum_rows``, and through it
+    ``sorted_combine_batch``) give the same bits on every run on the card,
+    however many duplicates a row has, and stay within the worst-case
+    error of an f32 sum of n terms in any order, n * 2^-24 * sum |terms|,
+    of the exact (f64) sums."""
+    from recommenders_addons_tpu_torch.ops import hashtable
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n = 1 << 16
+    seg = torch.randint(0, 64, (n,), device=cuda, generator=g)
+    seg[: n // 2] = 3  # one hot row with 32,768 occurrences
+    rows = torch.randn((n, 64), device=cuda, generator=g)
+    found = torch.rand(n, device=cuda, generator=g) > 0.05
+    a = hashtable.segment_sum_rows(rows, seg, 64)
+    assert torch.equal(a, hashtable.segment_sum_rows(rows, seg, 64))
+    r64 = rows.cpu().double()
+    exact = torch.zeros(64, 64, dtype=torch.float64).index_add_(
+        0, seg.cpu(), r64)
+    mag = torch.zeros(64, 64, dtype=torch.float64).index_add_(
+        0, seg.cpu(), r64.abs())
+    count = torch.bincount(seg.cpu(), minlength=64).double()[:, None]
+    assert bool(((a.cpu().double() - exact).abs()
+                 <= count * 2.0 ** -24 * mag).all())
+    c, rep = hashtable.sorted_combine_batch(rows, seg.to(torch.int32), found)
+    c2, rep2 = hashtable.sorted_combine_batch(rows, seg.to(torch.int32),
+                                              found)
+    assert torch.equal(c, c2) and torch.equal(rep, rep2)
+    assert int(rep.sum()) == int(seg[found].unique().numel())
+
+
+def test_hist_bench_needs_a_card_and_writes_the_floor_kernel():
+    """The histogram's launch-floor tool times CUDA kernels only; its
+    empty kernel and graph-node counter are a source it writes under
+    build/ (compiled on a card), hashed into its library's name."""
+    with pytest.raises(RuntimeError):
+        hist_bench.main(["--clusters", "4,8"], device="cpu")
+    k = hist_bench.floor_kernel()
+    text = k.source.read_text()
+    assert "extern \"C\" int launch_floor(void* stream)" in text
+    assert "cudaGraphGetNodes" in text and k.library.name.startswith(
+        "liblaunch_floor-")
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kw", DMA_GATHERS, ids=str)
 def test_dma_gather_empty_batch_launches_nothing(cuda, kw):
@@ -621,9 +667,16 @@ def test_ab_fused_matches_plain_on_card(cuda, mode, sub, nbuf):
 
 
 @pytest.mark.gpu
-def test_radix_hist_matches_bincount_on_card(cuda):
-    bids = torch.randint(-5000, 50000, (70001,), dtype=torch.int32,
-                         device=cuda)  # ragged, negatives, ids >= 1024
+@pytest.mark.parametrize("n,offset", [(70001, 0), (70001, 1), (1 << 22, 0),
+                                      (1 << 22, 3), (0, 0), (5, 2)])
+def test_radix_hist_matches_bincount_on_card(cuda, n, offset):
+    """Exact for every N: ragged, 4,194,304 ids (a grid of many clusters
+    and the last-cluster ticket), none, and ids that start off a 16-byte
+    boundary (the scalar head); one launch per call, no memset."""
+    g = torch.Generator(device=cuda).manual_seed(n + offset)
+    ids = torch.randint(-5000, 50000, (n + offset,), dtype=torch.int32,
+                        device=cuda, generator=g)  # negatives, ids >= 1024
+    bids = ids[offset:]
     before = cuda_ops.RADIX_HIST.launches
     got = ab_radix_plan.pallas_hist(bids, 1 << 15)
     want = ab_radix_plan.radix_hist_plain(bids)
@@ -632,6 +685,9 @@ def test_radix_hist_matches_bincount_on_card(cuda):
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert torch.equal(got.long(), torch.bincount((bids & 1023).long(),
                                                   minlength=1024))
+    assert int(got.sum()) == n
+    # the ticket is back at 0: the next call is exact too
+    assert torch.equal(ab_radix_plan.pallas_hist(bids, 0), want)
     # int64 ids are cut to int32 first, as the reference's astype
     assert torch.equal(ab_radix_plan.pallas_hist(
         bids.to(torch.int64) + (1 << 33), 0), got)

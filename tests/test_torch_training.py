@@ -329,29 +329,62 @@ def test_lookup_with_init_for_missing_matches():
                   use_init_for_missing=True).numpy(), np.asarray(want))
 
 
-def test_training_api_guards():
+@pytest.mark.parametrize("case", ["bp_v2", "return_evicted", "optax"])
+def test_training_api_guards(case):
+    """``bp_v2`` and ``return_evicted``, which raised until they were
+    ported, now train alike in both packages (SGD on the XLA path, the
+    same step at lookup and apply; rows within rtol 1e-5 / atol 1e-6,
+    evicted keys exact); an optax-style optimizer still raises."""
+    if case == "optax":
+        with pytest.raises(NotImplementedError):
+            tde.DynamicEmbeddingOptimizer(object())
+        assert isinstance(tde.DynamicEmbeddingOptimizer("adam"), tde.Adam)
+        return
+    kw = {"bp_v2": True} if case == "bp_v2" else {}
+    ev = case == "return_evicted"
+    jv = jvar.Variable(name="g", dim=DIM, init_capacity=256,
+                       initializer=jax.nn.initializers.uniform(0.05), **kw)
     tv = tde.Variable(name="g", dim=DIM, init_capacity=256, device="cpu",
-                      bp_v2=True)
-    with pytest.raises(NotImplementedError):
-        tv.embedding_lookup(tv.init(), torch.arange(1, 5))
-    tv = tde.Variable(name="g", dim=DIM, init_capacity=256, device="cpu")
-    st = tv.init()
-    _, ctx = tv.embedding_lookup(st, torch.arange(1, 5), step=1)
-    with pytest.raises(NotImplementedError):
-        tv.apply_gradients(st, ctx, torch.zeros(4, DIM), tde.SGD(),
-                           return_evicted=True)
-    with pytest.raises(NotImplementedError):
-        tde.DynamicEmbeddingOptimizer(object())
-    assert isinstance(tde.DynamicEmbeddingOptimizer("adam"), tde.Adam)
+                      initializer=tinit.uniform(0.05), **kw)
+    jst, tst = jv.init(), tv.init()
+
+    @jax.jit
+    def jstep(st, keys, g, step):
+        _, jctx = jv.embedding_lookup(st, keys, step=step)
+        return jv.apply_gradients(st, jctx, g, jde.SGD(0.05), step=step,
+                                  return_evicted=ev)
+
+    rng = np.random.default_rng(8)
+    for step in range(3):  # 3 x 200 ids into 256 slots: evictions
+        keys = rng.integers(1 + 200 * step, 300 + 200 * step, size=200)
+        g = rng.normal(size=(200, DIM)).astype(np.float32)
+        jout = jstep(jst, jnp.asarray(keys), jnp.asarray(g), jnp.int32(step))
+        _, ctx = tv.embedding_lookup(tst, torch.from_numpy(keys), step=step)
+        out = tv.apply_gradients(tst, ctx, torch.from_numpy(g),
+                                 tde.SGD(0.05), step=step, return_evicted=ev)
+        if ev:
+            (jst, jevicted), (tst, evicted) = jout, out
+            np.testing.assert_array_equal(evicted["keys"].numpy(),
+                                          np.asarray(jevicted["keys"]))
+        else:
+            jst, tst = jout, out
+    assert not ev or (evicted["keys"] != tv.empty_key).any()
+    for f in ("key_lo", "key_hi", "scores"):
+        np.testing.assert_array_equal(getattr(tst, f).numpy(),
+                                      np.asarray(getattr(jst, f)), err_msg=f)
+    np.testing.assert_allclose(tst.rows_logical.numpy(),
+                               np.asarray(jst.rows_logical), rtol=1e-5,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("field", [None, True, False])
 def test_defer_dedup_knob_reads_like_the_reference(field, monkeypatch):
     """With ``TFRA_TPU_DEFER_DEDUP=1`` both packages report the deferred
     path alike (the field wins when set). The reference defers only a
-    scored lookup (LRU given ``step``): there the port, which has no
-    deferred path yet, raises; an unscored lookup takes the ordinary path
-    in both and agrees."""
+    scored lookup (LRU given ``step``): there both packages defer, with
+    the occurrence contract (``found`` marks every occurrence) and equal
+    rows; an unscored lookup takes the ordinary path in both and
+    agrees."""
     monkeypatch.setenv("TFRA_TPU_DEFER_DEDUP", "1")
     jv = jvar.Variable(name="d", dim=DIM, init_capacity=256,
                        initializer=jax.nn.initializers.uniform(0.05),
@@ -362,13 +395,15 @@ def test_defer_dedup_knob_reads_like_the_reference(field, monkeypatch):
     on = field is not False
     assert tv.defer_dedup_on == jv.defer_dedup_on == on
     keys = np.array([3, 1, 3, 7], np.int64)
-    _, jctx = jv.embedding_lookup(jv.init(), jnp.asarray(keys), step=1)
+    jst = jv.upsert(jv.init(), jnp.asarray(keys), jnp.ones((4, DIM)))
+    want, jctx = jv.embedding_lookup(jst, jnp.asarray(keys), step=1)
     assert jctx.deferred == on
-    if on:
-        with pytest.raises(NotImplementedError):
-            tv.embedding_lookup(tv.init(), torch.from_numpy(keys), step=1)
-    else:
-        tv.embedding_lookup(tv.init(), torch.from_numpy(keys), step=1)
+    got, ctx = tv.embedding_lookup(_carry(jst), torch.from_numpy(keys),
+                                   step=1)
+    assert ctx.deferred == on
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(ctx.found.numpy(), np.asarray(jctx.found))
+    assert bool(ctx.found.all()) == on  # the occurrence contract
     want, jctx = jv.embedding_lookup(jv.init(), jnp.asarray(keys))
     assert not jctx.deferred
     got, ctx = tv.embedding_lookup(tv.init(), torch.from_numpy(keys))
