@@ -6,8 +6,10 @@ a DLRM-width dynamic-embedding table through the port's EmbeddingServer,
 trains the full-width DLRM through train_loop, runs the table-step
 benchmark's configuration through hit, duplicate, fresh-key and eviction
 batches and through the rest of the training surface (deferred dedup,
-bp_v2, evicted rows, the KV API), and the kernel tools, checking each
-result against a reference.
+bp_v2, evicted rows, the KV API), trains the model families built on the
+sparse lookup API (DCN at full width, MovieLens, two-tower retrieval,
+seq-and-dense) and the sparse API itself, and runs the kernel tools,
+checking each result against a reference.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -77,7 +79,28 @@ Phases (any failure exits non-zero):
    1e-5 / atol 1e-5; skipped keys bit-exact), remove of half the keys,
    clear; (e) plan_lookup_fast on all-hit dup-free, all-hit duplicate and
    miss batches against plan_lookup's contract.
-6. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
+6. The models on the sparse lookup API. (a) DCNConfig() (26 sparse and
+   13 dense features, dim 32, 3 cross layers of 845 x 845, deep tower
+   256-128, a 4Mi-slot table with its Adagrad accumulator) trains 20
+   steps of batch 4096 through train_loop: the loss finite at every
+   step, ms/step, host syncs of one step, a profiler trace of 3; then
+   row_gather and fused_update_scatter on one more step's own operands
+   against their plain versions (bit-exact; 4 f32 ulps). (b) A narrow
+   DCN trains 3 steps on the card and on the CPU from the same weights:
+   key planes, scores and size bit-exact, losses and rows within rtol
+   1e-4 / atol 1e-5. (c) The sparse API at DCN's table width (dim 32,
+   Adagrad, 256Ki slots): 8,192 rows of up to 8 zipf ids (EMPTY
+   padding, every 97th row empty, 1% negative ids, positive weights) as
+   padded-dense ids, SparseIds and RaggedIds, through
+   embedding_lookup_sparse and safe_embedding_lookup_sparse (with and
+   without default_id) for sum, mean and sqrtn, each followed by
+   apply_sparse_gradients, on the card and on a CPU copy: key planes and
+   scores bit-exact after every step, combined outputs, row gradients
+   and rows within rtol 1e-5 / atol 1e-6. (d) Each family's run_demo
+   with the JAX package's test seeds and sizes, held to the JAX tests'
+   bars (MovieLens eval MSE < 1.0, multi-hot < 2.0, retrieval recall >
+   0.8, DCN AUC > 0.6, seq-and-dense eval MSE < 0.5).
+7. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
    dma_bench.py) at its two full-width shapes, 2Mi rows of 2 chunks (its
    default) and 4Mi rows of 1: every variant of its two lists, a
    predicated gather (row and premultiplied predicate) and a predicated
@@ -91,7 +114,7 @@ Phases (any failure exits non-zero):
    index_copy_); then its four kernels' plain versions timed, and the two
    gathers' ms over their bound and over index_select, with a
    torch.profiler trace of 10 calls each (device busy share, kernel ms).
-7. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
+8. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
    and ab_radix_plan.py). ab_fused against its plain version at the
    fused-apply probe's full width (2Mi rows of 1 KiB, N = 66,573 unique
    indices, v >= 0), every mode x sub x nbuf: identity and rawcopy
@@ -110,13 +133,14 @@ Phases (any failure exits non-zero):
    (ns/row of its five variants; ns/key of its four).
 
 Each main path (serving, DLRM training, table step, the five parts of
-the training surface, dma_bench, ab_kernel_cost, ab_radix_plan) is
+the training surface, the DCN, the sparse API, the learning bars,
+dma_bench, ab_kernel_cost, ab_radix_plan) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
 
 Output: the card's name and power limit on a line of its own,
 ``{"serving": ...}``, ``{"training": ...}``,
-``{"training_surface": ...}``, ``{"dma_bench": ...}``,
+``{"training_surface": ...}``, ``{"models": ...}``, ``{"dma_bench": ...}``,
 ``{"ab_tools": ...}``, ``{"kernels": [...]}`` and last
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -171,6 +195,14 @@ DMA_PIPE_CHECKS = ((64, 256, 1037), (64, 256, (1 << 11) + 3),
 AB_N_CHECK = 65536 + 1037  # ragged: a partial tile and chunk
 AB_STEP = 3.0
 HIST_N_BIG = 1 << 22  # radix_hist over a grid of many clusters
+# the models phase: DCNConfig()'s 20 steps; the narrow DLRM's and DCN's
+# card-against-CPU tolerance for losses and rows (matrix products sum in
+# another order on the card); the sparse API's 8,192 rows of up to 8 ids
+# at DCN's table width, in a table of 256Ki slots, held card against CPU
+# at the training tests' f32 tolerance
+DCN_STEPS = 20
+NARROW_RTOL, NARROW_ATOL = 1e-4, 1e-5
+SPARSE_ROWS, SPARSE_LEN, SPARSE_CAP = 8192, 8, 1 << 18
 
 _F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per updated column of Adagrad (ops/optimizer.py:
@@ -601,16 +633,27 @@ def _on(torch, batch, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def _narrow_reference(torch, dev, seed):
-    """A narrow DLRM trains 3 steps on the card and on the CPU (the plain
-    versions) from the same weights and batches: the card's losses, key
-    planes, scores and rows must agree with the CPU's."""
+def _narrow_reference(torch, dev, seed, family="dlrm"):
+    """A narrow DLRM (or DCN) trains 3 steps on the card and on the CPU
+    (the plain versions) from the same weights and batches: key planes,
+    scores and sizes bit-exact, losses and rows within NARROW_RTOL /
+    NARROW_ATOL (matrix products sum in another order on the card)."""
     from recommenders_addons_tpu_torch import convert
     from recommenders_addons_tpu_torch import dynamic_embedding as de
-    from recommenders_addons_tpu_torch.models import dlrm
+    from recommenders_addons_tpu_torch.models import dcn, dlrm
 
-    cfg = dlrm.DLRMConfig(num_sparse=4, dim=8, bottom_sizes=(16, 8),
-                          top_sizes=(16, 1), table_capacity=1024)
+    if family == "dlrm":
+        lib, state_cls = dlrm.DLRM, dlrm.DLRMState
+        cfg = dlrm.DLRMConfig(num_sparse=4, dim=8, bottom_sizes=(16, 8),
+                              top_sizes=(16, 1), table_capacity=1024)
+        to_np, from_np = convert.dlrm_dense_to_numpy, \
+            convert.dlrm_dense_from_numpy
+    else:
+        lib, state_cls = dcn.DCN, dcn.DCNState
+        cfg = dcn.DCNConfig(num_sparse=4, dim=8, num_cross=2,
+                            deep_sizes=(16, 8), table_capacity=1024)
+        to_np, from_np = convert.dcn_dense_to_numpy, \
+            convert.dcn_dense_from_numpy
     rng = np.random.default_rng(seed)
     batches = [dlrm.synthetic_criteo_batch(rng, 64, num_sparse=4,
                                            vocab_per_feature=400)
@@ -618,12 +661,12 @@ def _narrow_reference(torch, dev, seed):
     weights = None
     runs = {}
     for where in ("cpu", dev):
-        model = dlrm.DLRM(cfg, device=where)
+        model = lib(cfg, device=where)
         state = model.init(seed)
         if weights is None:
-            weights = convert.dlrm_dense_to_numpy(state.dense)
-        dense = convert.dlrm_dense_from_numpy(weights, cfg, device=where)
-        state = dlrm.DLRMState(
+            weights = to_np(state.dense)
+        dense = from_np(weights, cfg, device=where)
+        state = state_cls(
             table=de.create_slots(model.var, state.table, model.opt),
             dense=dense, step=0)
         step, tx = model.make_train_step()
@@ -633,41 +676,48 @@ def _narrow_reference(torch, dev, seed):
             state, opt_state, loss = step(state, opt_state, _on(torch, b,
                                                                 where))
             losses.append(float(loss))
-        runs[str(where)] = (losses, state.table)
-    (cl, ct), (gl, gt) = runs["cpu"], runs[str(dev)]
-    if not np.allclose(gl, cl, rtol=1e-4, atol=1e-5):
-        raise AssertionError(f"narrow DLRM losses: card {gl}, CPU {cl}")
+        runs[str(where)] = (losses, state.table,
+                            int(model.var.size(state.table)))
+    (cl, ct, cn), (gl, gt, gn) = runs["cpu"], runs[str(dev)]
+    if not np.allclose(gl, cl, rtol=NARROW_RTOL, atol=NARROW_ATOL):
+        raise AssertionError(f"narrow {family} losses: card {gl}, CPU {cl}")
     for f in ("key_lo", "key_hi", "scores"):
         if not torch.equal(getattr(gt, f).cpu(), getattr(ct, f)):
-            raise AssertionError(f"narrow DLRM {f}: card and CPU differ")
+            raise AssertionError(f"narrow {family} {f}: card and CPU "
+                                 f"differ")
+    if gn != cn:
+        raise AssertionError(f"narrow {family} size: card {gn}, CPU {cn}")
     rows_err = float((gt.rows_logical.cpu() - ct.rows_logical).abs().max())
     if not torch.allclose(gt.rows_logical.cpu(), ct.rows_logical,
-                          rtol=1e-4, atol=1e-5):
-        raise AssertionError(f"narrow DLRM rows differ by {rows_err}")
+                          rtol=NARROW_RTOL, atol=NARROW_ATOL):
+        raise AssertionError(f"narrow {family} rows differ by {rows_err}")
     return {"steps": 3, "batch": 64, "losses_card": gl, "losses_cpu": cl,
-            "rows_max_abs_err": rows_err}
+            "size": gn, "rows_max_abs_err": rows_err,
+            "rtol": NARROW_RTOL, "atol": NARROW_ATOL}
 
 
-def training_phase(torch, cuda_ops, dev, seed):
-    """Phase 3: the DLRM trainer on the card (narrow reference check, then
-    full width through train_loop)."""
+def _train_full_width(torch, cuda_ops, dev, model, seed, steps, n_extra,
+                      what):
+    """The main path of a full-width CTR trainer (DLRM or DCN): its
+    Adagrad slots made first, as bench.py's DLRM cell does, then
+    ``steps`` steps of DLRM_BATCH through train_loop with the launch
+    counts set to 0 just before and read just after (row_gather and
+    fused_update_scatter must have launched); then the host syncs of one
+    more step and a profiler trace of 3. Returns the numbers, the losses
+    by step and a closure that runs one more step (``n_extra`` batches
+    are made for the steps after the main path)."""
     from recommenders_addons_tpu_torch import dynamic_embedding as de
     from recommenders_addons_tpu_torch.models import dlrm
     from recommenders_addons_tpu_torch.train import LoopConfig, train_loop
 
-    reference = _narrow_reference(torch, dev, seed)
-
-    cfg = dlrm.DLRMConfig()
-    model = dlrm.DLRM(cfg)
     state = model.init(seed)
-    # slots first, as bench.py's DLRM cell does
     state = dataclasses.replace(
         state, table=de.create_slots(model.var, state.table, model.opt))
     train_step, tx = model.make_train_step()
     opt_state = [tx.init(list(state.dense.parameters()))]
     rng = np.random.default_rng(seed)
     batches = [dlrm.synthetic_criteo_batch(rng, DLRM_BATCH)
-               for _ in range(DLRM_STEPS + 5)]
+               for _ in range(steps + n_extra)]
 
     def step_fn(st, batch):
         st, opt_state[0], loss = train_step(st, opt_state[0], batch)
@@ -682,26 +732,22 @@ def training_phase(torch, cuda_ops, dev, seed):
     # -- the main path: counters from 0, train, read counters ------------
     cuda_ops.reset_launches()
     t0 = time.perf_counter()
-    state, report = train_loop(step_fn, state, batches[:DLRM_STEPS],
-                               LoopConfig(steps=DLRM_STEPS, log_every=1),
+    state, report = train_loop(step_fn, state, batches[:steps],
+                               LoopConfig(steps=steps, log_every=1),
                                on_log=on_log)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in cuda_ops.KERNELS}
-    first, last = losses[1], losses[DLRM_STEPS]
-    if not (math.isfinite(first) and math.isfinite(last) and last < first):
-        raise AssertionError(f"DLRM loss {first} at step 1, {last} at step "
-                             f"{DLRM_STEPS}: not finite and falling")
     for k in ("row_gather", "fused_update_scatter"):
         if not launches[k]:
-            raise AssertionError(f"{k} was not launched in training: "
+            raise AssertionError(f"{k} was not launched in {what}: "
                                  f"{launches}")
     size = int(model.var.size(state.table))
-    ms_step = (stamps[DLRM_STEPS] - stamps[1]) / (DLRM_STEPS - 1) * 1e3
+    ms_step = (stamps[steps] - stamps[1]) / (steps - 1) * 1e3
 
     # -- after the checked run: host syncs of one step (its batch already
     # on the card, as train_loop stages it), a trace of 3 ---------------
-    extra = iter([_on(torch, b, dev) for b in batches[DLRM_STEPS:]])
+    extra = iter([_on(torch, b, dev) for b in batches[steps:]])
     holder = [state]
 
     def one_step():
@@ -709,20 +755,39 @@ def training_phase(torch, cuda_ops, dev, seed):
 
     _, syncs = _count_syncs(torch, one_step)
     busy, top = _device_profile(torch, one_step, iters=3, top_n=10)
-    return {
-        "config": "DLRMConfig() (dim 64, 26 features, bottom 13-512-256-64, "
-                  "top 415-512-256-1, table 4Mi slots + Adagrad "
-                  "accumulator, f32)",
+    out = {
         "batch": DLRM_BATCH, "keys_per_step": DLRM_BATCH * FEATURES,
-        "steps": report.steps, "loss_step_1": first,
-        f"loss_step_{DLRM_STEPS}": last,
+        "steps": report.steps, "loss_step_1": losses[1],
+        f"loss_step_{steps}": losses[steps],
         "losses": [losses[i] for i in sorted(losses)],
         "table_keys_after": size, "train_loop_wall_s": wall_s,
         "ms_per_step": ms_step,
         "examples_per_s": DLRM_BATCH / (ms_step / 1e3),
         "host_syncs_per_step": syncs,
         "device_busy_share": busy, "top_device_ops_ms": top,
-        "launches": launches, "narrow_reference": reference,
+        "launches": launches,
+    }
+    return out, losses, one_step
+
+
+def training_phase(torch, cuda_ops, dev, seed):
+    """Phase 3: the DLRM trainer on the card (narrow reference check, then
+    full width through train_loop)."""
+    from recommenders_addons_tpu_torch.models import dlrm
+
+    reference = _narrow_reference(torch, dev, seed)
+    out, losses, _ = _train_full_width(
+        torch, cuda_ops, dev, dlrm.DLRM(dlrm.DLRMConfig()), seed,
+        DLRM_STEPS, 5, "training")
+    first, last = losses[1], losses[DLRM_STEPS]
+    if not (math.isfinite(first) and math.isfinite(last) and last < first):
+        raise AssertionError(f"DLRM loss {first} at step 1, {last} at step "
+                             f"{DLRM_STEPS}: not finite and falling")
+    return {
+        "config": "DLRMConfig() (dim 64, 26 features, bottom 13-512-256-64, "
+                  "top 415-512-256-1, table 4Mi slots + Adagrad "
+                  "accumulator, f32)",
+        **out, "narrow_reference": reference,
     }
 
 
@@ -824,14 +889,14 @@ def _clone_state(st):
                       rows=st.rows.clone(), scores=st.scores.clone())
 
 
-def _launched(cuda_ops, part, names):
+def _launched(cuda_ops, part, names, phase="training_surface"):
     """This part's launch counts; fails if a kernel of ``names`` was not
     launched."""
     launches = {k.name: k.launches for k in cuda_ops.KERNELS}
     missing = [k for k in names if not launches[k]]
     if missing:
-        raise AssertionError(f"{missing} not launched in training_surface "
-                             f"{part}: {launches}")
+        raise AssertionError(f"{missing} not launched in {phase} {part}: "
+                             f"{launches}")
     return launches
 
 
@@ -1131,6 +1196,227 @@ def training_surface_phase(torch, cuda_ops, dev, seed):
     return out
 
 
+def _sparse_batch(seed):
+    """SPARSE_ROWS rows of up to SPARSE_LEN zipf(1.2) ids: EMPTY padding,
+    every 97th row empty, 1% negative ids, weights uniform in
+    [0.1, 2)."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+
+    rng = np.random.default_rng(seed)
+    ids = (rng.zipf(1.2, size=(SPARSE_ROWS, SPARSE_LEN)) % (1 << 22)
+           + 1).astype(np.int64)
+    lens = rng.integers(0, SPARSE_LEN + 1, size=SPARSE_ROWS)
+    lens[::97] = 0
+    ids[np.arange(SPARSE_LEN)[None, :] >= lens[:, None]] = de.EMPTY_KEY
+    neg = (rng.random(ids.shape) < 0.01) & (ids > 0)
+    ids[neg] *= -1
+    w = rng.uniform(0.1, 2.0, size=ids.shape).astype(np.float32)
+    return ids, w
+
+
+def _sparse_inputs(torch, de, kind, ids, w, where):
+    """The batch as padded-dense ids, SparseIds or RaggedIds on ``where``
+    (with its [nnz] weights)."""
+    if kind == "dense":
+        return (torch.from_numpy(ids).to(where),
+                torch.from_numpy(w).to(where))
+    if kind == "sparse":
+        sp = de.dense_to_sparse(torch.from_numpy(ids).to(where))
+        return sp, torch.from_numpy(w.reshape(-1)).to(where)
+    keep = ids != de.EMPTY_KEY
+    splits = np.concatenate([[0], np.cumsum(keep.sum(1))]).astype(np.int32)
+    pad = ids.size - int(keep.sum())  # tail padding, masked by the splits
+    vals = np.concatenate([ids[keep], np.full(pad, 5, np.int64)])
+    wv = np.concatenate([w[keep], np.ones(pad, np.float32)])
+    return (de.RaggedIds(torch.from_numpy(vals).to(where),
+                         torch.from_numpy(splits).to(where)),
+            torch.from_numpy(wv).to(where))
+
+
+def _sparse_api_part(torch, cuda_ops, dev, seed):
+    """Models phase (c): the sparse API at DCN's table width (dim 32,
+    Adagrad(0.01), uniform(0.05), LRU; SPARSE_CAP slots) on the card and
+    on a CPU copy, step by step: each input type, each lookup and
+    combiner, then apply_sparse_gradients with the same gradient."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+
+    ids, w = _sparse_batch(seed)
+    opt = de.Adagrad(0.01)
+    vars_, states = {}, {}
+    for where in ("cpu", dev):
+        var = de.Variable(name="sparse_api", dim=32,
+                          init_capacity=SPARSE_CAP,
+                          initializer=de.initializers.uniform(0.05),
+                          device=where)
+        vars_[str(where)] = var
+        states[str(where)] = de.create_slots(var, var.init(), opt)
+    cpu, card = "cpu", str(dev)
+    rng = np.random.default_rng(seed + 1)
+    out = {"rows": SPARSE_ROWS, "max_len": SPARSE_LEN,
+           "ids": int(ids.size), "empty_rows": int(
+               (ids == de.EMPTY_KEY).all(1).sum()),
+           "negative_ids": int(((ids < 0) & (ids != de.EMPTY_KEY)).sum()),
+           "steps": 0, "combined_max_abs_err": 0.0,
+           "row_grad_max_abs_err": 0.0}
+    card_s = 0.0
+    cuda_ops.reset_launches()
+    for kind in ("dense", "sparse", "ragged"):
+        ins = {str(w_): _sparse_inputs(torch, de, kind, ids, w, w_)
+               for w_ in ("cpu", dev)}
+        for combiner in ("sum", "mean", "sqrtn"):
+            for fn, kw in ((de.embedding_lookup_sparse, {}),
+                           (de.safe_embedding_lookup_sparse, {}),
+                           (de.safe_embedding_lookup_sparse,
+                            {"default_id": 7})):
+                what = f"{kind} {fn.__name__} {combiner} {kw}"
+                step = out["steps"]
+                g = rng.normal(size=(SPARSE_ROWS, 32)).astype(np.float32)
+                res = {}
+                for where in (cpu, card):
+                    ids_in, w_in = ins[where]
+                    var, st = vars_[where], states[where]
+                    t = time.perf_counter()
+                    c, ctx = fn(var, st, ids_in, w_in, combiner=combiner,
+                                **kw)
+                    gt = torch.from_numpy(g).to(where)
+                    rg = ctx.row_gradient(gt)
+                    states[where] = de.apply_sparse_gradients(
+                        var, st, ctx, gt, opt, step=step)
+                    if where == card:
+                        torch.cuda.synchronize()
+                        card_s += time.perf_counter() - t
+                    res[where] = (c.cpu(), rg.cpu())
+                (cc, cg), (gc, gg) = res[cpu], res[card]
+                if not (torch.allclose(gc, cc, rtol=SURFACE_RTOL,
+                                       atol=SURFACE_ATOL)
+                        and torch.allclose(gg, cg, rtol=SURFACE_RTOL,
+                                           atol=SURFACE_ATOL)):
+                    raise AssertionError(f"sparse API {what}: the card's "
+                                         f"combine or row gradient differs")
+                out["combined_max_abs_err"] = max(
+                    out["combined_max_abs_err"],
+                    float((gc - cc).abs().max()))
+                out["row_grad_max_abs_err"] = max(
+                    out["row_grad_max_abs_err"], float((gg - cg).abs().max()))
+                for f in ("key_lo", "key_hi", "scores"):
+                    if not torch.equal(getattr(states[card], f).cpu(),
+                                       getattr(states[cpu], f)):
+                        raise AssertionError(f"sparse API {what}: {f} "
+                                             f"differ, card against CPU")
+                out["steps"] += 1
+        n_card = int(vars_[card].size(states[card]))
+        if n_card != int(vars_[cpu].size(states[cpu])):
+            raise AssertionError(f"sparse API {kind}: sizes differ")
+        out[f"size_after_{kind}"] = n_card
+        out[f"rows_max_abs_err_{kind}"] = _rows_close(
+            torch, states[card].rows_logical.cpu(),
+            states[cpu].rows_logical, f"sparse API {kind}")
+    launches = _launched(cuda_ops, "(c) sparse API",
+                         ("row_gather", "fused_update_scatter"), "models")
+    out.update(card_ms_per_step=card_s / out["steps"] * 1e3,
+               launches=launches, rtol=SURFACE_RTOL, atol=SURFACE_ATOL)
+    return out
+
+
+def _learning_bars(torch, cuda_ops):
+    """Models phase (d): each family's run_demo on the card with the JAX
+    package's test seeds and sizes, held to the JAX tests' bars."""
+    from recommenders_addons_tpu_torch.models import (dcn, movielens,
+                                                      retrieval,
+                                                      seq_and_dense)
+
+    runs = (
+        ("movielens", lambda: movielens.run_demo(150, 256, log_every=0),
+         lambda tr, ev: ev < 1.0, "eval MSE < 1.0"),
+        ("movielens_multi_hot",
+         lambda: movielens.run_demo(60, 128, multi_hot=True, log_every=0),
+         lambda tr, ev: math.isfinite(tr) and ev < 2.0,
+         "train MSE finite, eval MSE < 2.0"),
+        ("retrieval", lambda: retrieval.run_demo(250, 256),
+         lambda tr, ev: ev > 0.8, "recall > 0.8"),
+        ("dcn", lambda: dcn.run_demo(60, 256, dim=8, log_every=0),
+         lambda tr, ev: math.isfinite(tr) and ev > 0.6,
+         "loss finite, AUC > 0.6"),
+        ("seq_and_dense", lambda: seq_and_dense.run_demo(150, 256),
+         lambda tr, ev: ev < 0.5, "eval MSE < 0.5"),
+    )
+    out = {}
+    cuda_ops.reset_launches()
+    for name, run, bar, says in runs:
+        t = time.perf_counter()
+        train, metric = run()
+        out[name] = {"train": train, "metric": metric, "bar": says,
+                     "s": time.perf_counter() - t}
+        if not bar(train, metric):
+            raise AssertionError(f"{name}: {train}, {metric} misses the JAX "
+                                 f"test's bar ({says})")
+    out["launches"] = _launched(cuda_ops, "(d) learning bars",
+                                ("row_gather", "fused_update_scatter"),
+                                "models")
+    return out
+
+
+def models_phase(torch, cuda_ops, dev, seed):
+    """Phase 6: the model families on the sparse lookup API. (a) DCNConfig()
+    at full width, 20 steps of 4,096 through train_loop, then a check of
+    kernels 1 and 3 on one step's own calls; (b) a narrow DCN on card and
+    CPU; (c) the sparse API at DCN's table width, card against CPU; (d)
+    the JAX tests' learning bars. Launch counts reset before (a), (c) and
+    (d)."""
+    from recommenders_addons_tpu_torch.models import dcn
+    from recommenders_addons_tpu_torch.tools import fused_sweep as fs
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matrix products are on: the DCN checks "
+                             "hold float32 products")
+    # (a) the main path; 6 more batches: the sync count, the trace (a
+    # warm-up and 3) and the kernels' own-operand check
+    dcn_out, losses, one_step = _train_full_width(
+        torch, cuda_ops, dev, dcn.DCN(dcn.DCNConfig()), seed, DCN_STEPS, 6,
+        "models (a) DCN")
+    bad = [i for i, v in losses.items() if not math.isfinite(v)]
+    if bad or len(losses) != DCN_STEPS:
+        raise AssertionError(f"DCN losses not finite at steps {bad}: "
+                             f"{losses}")
+
+    # -- kernels 1 and 3 on one step's own operands against their plain
+    # versions ------------------------------------------------------------
+    calls = []
+    gathers = fs.record_calls(
+        lambda: calls.extend(fs.record_calls(one_step)),
+        "gather_rows_2d", limit=2)
+    gather_err = 0
+    for a in gathers:
+        gather_err = max(gather_err, _same_bits(
+            torch, cuda_ops.gather_rows_2d(**a),
+            cuda_ops.gather_rows_2d_plain(**a)))
+    if not gathers or gather_err:
+        raise AssertionError(f"row_gather on a DCN step's operands: "
+                             f"{len(gathers)} calls, {gather_err} apart")
+    if len(calls) != 1:
+        raise AssertionError(f"one DCN step called the fused apply "
+                             f"{len(calls)} times")
+    inp = fs.Inputs.of_call(calls[0])
+    got = inp.table.clone()
+    inp.call(got)
+    inp.plain(inp.table)
+    torch.cuda.synchronize()
+    fused = fs.compare(got, inp.table, inp, "adagrad dcn step")
+    dcn_out.update(
+        config="DCNConfig() (26 sparse + 13 dense features, dim 32, 3 cross "
+               "layers 845 x 845, deep 845-256-128, head 973-1; table 4Mi "
+               "slots + Adagrad accumulator, f32)",
+        row_gather_own_calls_max_abs_err=gather_err,
+        fused_own_call_ulps_max_abs_err=fused,
+        fused_own_call_trash_share=inp.trash_share())
+    del gathers, calls, inp, got, one_step
+    torch.cuda.empty_cache()
+    return {"dcn": dcn_out,
+            "narrow_dcn": _narrow_reference(torch, dev, seed, "dcn"),
+            "sparse_api": _sparse_api_part(torch, cuda_ops, dev, seed),
+            "learning_bars": _learning_bars(torch, cuda_ops)}
+
+
 def _dma_inputs(torch, dev, gen, cap, ch, n):
     """A [cap*ch, 128] table of random words; gather indices (random
     rows) and scatter indices (unique rows), each with sentinels,
@@ -1150,7 +1436,7 @@ def _dma_inputs(torch, dev, gen, cap, ch, n):
 
 
 def dma_bench_phase(torch, cuda_ops, dev, gen, card):
-    """Phase 5: the row-copy micro-benchmark (tools/dma_bench.py) at its
+    """Phase 7: the row-copy micro-benchmark (tools/dma_bench.py) at its
     two full-width shapes: every variant of its lists, plus a predicated
     gather (row and premultiplied predicate) and a predicated scatter,
     held bit-exact against its plain version at a ragged N; then the
@@ -1323,7 +1609,7 @@ def _ab_fused_check(torch, fn, mode, table, want, idx, packed, g):
 
 
 def ab_tools_phase(torch, cuda_ops, dev, gen, rate, card):
-    """Phase 6: the fused-apply probe's kernel (ab_fused) against its
+    """Phase 8: the fused-apply probe's kernel (ab_fused) against its
     plain version at the probe's full width, every mode and knob; the
     radix-histogram probe's kernel (radix_hist) against torch.bincount;
     each timed beside its plain version; then both tools' main(), the
@@ -1520,6 +1806,10 @@ def main(argv=None) -> int:
     surface = training_surface_phase(torch, cuda_ops, dev, args.seed)
     surface["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    models = models_phase(torch, cuda_ops, dev, args.seed)
+    models["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     dma_kernels, dma = dma_bench_phase(torch, cuda_ops, dev, gen, card)
     kernels += dma_kernels
     torch.cuda.empty_cache()
@@ -1530,11 +1820,20 @@ def main(argv=None) -> int:
              "table_step": table_step["launches"],
              **{f"training_surface_{p}": n
                 for p, n in surface["launches"].items()},
+             "models_dcn": models["dcn"]["launches"],
+             "models_sparse_api": models["sparse_api"]["launches"],
+             "models_learning_bars": models["learning_bars"]["launches"],
              "dma_bench": dma["launches"], **ab["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         k["card"] = card
+        if k["name"] == "row_gather":
+            k["dcn_step_max_abs_err"] = models["dcn"][
+                "row_gather_own_calls_max_abs_err"]
+        if k["name"] == "fused_update_scatter":
+            k["dcn_step_ulps_max_abs_err"] = models["dcn"][
+                "fused_own_call_ulps_max_abs_err"]
     if "jax" in sys.modules or "recommenders_addons_tpu" in sys.modules:
         raise AssertionError("the port run imported JAX or the JAX package")
 
@@ -1544,6 +1843,7 @@ def main(argv=None) -> int:
     print(json.dumps({"training": dict(training, table_step=table_step,
                                        card=card)}))
     print(json.dumps({"training_surface": dict(surface, card=card)}))
+    print(json.dumps({"models": dict(models, card=card)}))
     print(json.dumps({"dma_bench": dma}))
     print(json.dumps({"ab_tools": ab}))
     print(json.dumps({"kernels": kernels}))

@@ -11,9 +11,13 @@ raises unless the caller asks for ``device="cpu"``, where each kernel
 wrapper runs its plain PyTorch version.
 
 Ported: the serving path (``python -m recommenders_addons_tpu_torch.serving
---dir <export_dir>``) and the training path (``Variable.embedding_lookup``
--> ``apply_gradients`` with the named row-wise optimizers; the DLRM
-trainer in ``models/dlrm.py`` driven by ``train.train_loop``).
+--dir <export_dir>``), the training path (``Variable.embedding_lookup``
+-> ``apply_gradients`` with the named row-wise optimizers), the sparse
+lookup API (``de.embedding_lookup_sparse``,
+``de.safe_embedding_lookup_sparse``, ``de.apply_sparse_gradients``), the
+layers (``nn`` / ``keras.layers``) and the model families in ``models/``
+(DLRM, DCN, MovieLens, two-tower retrieval, seq-and-dense), driven by
+``train.train_loop`` or their ``run_demo``.
 """
 
 from __future__ import annotations

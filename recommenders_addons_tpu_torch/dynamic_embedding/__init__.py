@@ -1,13 +1,19 @@
-"""Public `dynamic_embedding` API of the port (the serving and training
-subset of the JAX package's ``dynamic_embedding``; the table functions,
-deferred dedup, bp_v2 and evicted-row capture among them, are
-``raw_table``'s).
+"""Public `dynamic_embedding` API of the port, under the JAX package's
+names: tables (``Variable``, ``raw_table``), the sparse optimizers, the
+sparse lookup API (``embedding_lookup_sparse``,
+``safe_embedding_lookup_sparse``, the ragged lookups), ``de.math`` and
+``data_flow``, the scope store (``get_variable``), string hashing and
+the serving format.
 
 Usage::
 
     from recommenders_addons_tpu_torch import dynamic_embedding as de
 """
 
+from recommenders_addons_tpu_torch.ops.hashing import (  # noqa: F401
+    EMPTY_KEY,
+    hash_strings,
+)
 from recommenders_addons_tpu_torch.ops.hashtable import (  # noqa: F401
     TableSpec,
     TableState,
@@ -17,8 +23,15 @@ from recommenders_addons_tpu_torch.ops import hashtable as raw_table  # noqa: F4
 from recommenders_addons_tpu_torch.ops.variable import (  # noqa: F401
     EvictStrategy,
     EvictStrategy as HkvEvictStrategy,  # the reference's name
+    GraphKeys,
     LookupContext,
+    ModelMode,
     Variable,
+    clear_variable_store,
+    enable_inference_mode,
+    enable_train_mode,
+    get_model_mode,
+    get_variable,
 )
 from recommenders_addons_tpu_torch.ops.optimizer import (  # noqa: F401
     FTRL,
@@ -34,5 +47,54 @@ from recommenders_addons_tpu_torch.ops.optimizer import (  # noqa: F401
     create_slots,
 )
 from recommenders_addons_tpu_torch.ops import initializers  # noqa: F401
+from recommenders_addons_tpu_torch.ops import de_math as math  # noqa: F401
+from recommenders_addons_tpu_torch.ops import data_flow  # noqa: F401
+from recommenders_addons_tpu_torch.ops.sparse import (  # noqa: F401
+    RaggedIds,
+    RaggedValues,
+    SparseIds,
+    SparseLookupContext,
+    apply_sparse_gradients,
+    dense_to_sparse,
+    embedding_lookup_ragged,
+    embedding_lookup_sparse,
+    ragged_fill_empty_rows,
+    safe_embedding_lookup_sparse,
+    sparse_fill_empty_rows,
+    sparse_reshape,
+)
+from recommenders_addons_tpu_torch.ops import sparse as ragged_embedding_ops  # noqa: F401
 from recommenders_addons_tpu_torch.ops import serving  # noqa: F401
-from recommenders_addons_tpu_torch.ops.serving import freeze  # noqa: F401
+from recommenders_addons_tpu_torch.ops.serving import (  # noqa: F401
+    FrozenTable,
+    export_compressed,
+    freeze,
+    load_compressed,
+)
+
+
+def patch_on_tf(*_a, **_k):
+    """A no-op kept for the reference's API: the reference patches TF's
+    optimizer and saver at import; the port threads its state
+    explicitly and needs no patches."""
+    return None
+
+
+def patch_on_tf_save_restore(*_a, **_k):
+    """A no-op kept for the reference's API."""
+    return None
+
+
+def embedding_lookup(var, state, ids, **kwargs):
+    """Trainable lookup with dedup: ``(emb, ctx)`` (the reference's
+    ``embedding_lookup``)."""
+    return var.embedding_lookup(state, ids, **kwargs)
+
+
+# every trainable lookup dedups (the reference's embedding_lookup_unique)
+embedding_lookup_unique = embedding_lookup
+embedding_lookup_trainable = embedding_lookup
+
+
+from recommenders_addons_tpu_torch import keras  # noqa: E402,F401
+from recommenders_addons_tpu_torch import train  # noqa: E402,F401

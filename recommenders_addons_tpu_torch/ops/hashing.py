@@ -7,10 +7,16 @@ wraps modulo 2^64, and a logical right shift is an arithmetic shift with
 the sign-extended bits masked off (``_srl``). Outputs are int64 tensors
 that hold the unsigned results: ``mix64`` returns the uint64 bits
 reinterpreted as int64, ``mix32`` the uint32 value in ``[0, 2^32)``.
+
+``hash_strings`` fingerprints string keys on the host, in numpy, as the
+JAX package does.
 """
 
 from __future__ import annotations
 
+import hashlib
+
+import numpy as np
 import torch
 
 # Reserved sentinel marking an empty hashtable slot AND the canonical padding
@@ -128,3 +134,60 @@ def shard_of(keys: torch.Tensor, num_shards: int) -> torch.Tensor:
     m = mix(keys)
     hi = _srl(m, 32) if keys.dtype == torch.int64 else mix32(m)
     return (hi % num_shards).to(torch.int32)
+
+
+_FNV_OFFSET = np.uint64(0xCBF29CE484222325)
+_FNV_PRIME = np.uint64(0x100000001B3)
+_GOLDEN = np.uint64(0x9E3779B97F4A7C15)
+_SPLITMIX_C1_U = np.uint64(0xBF58476D1CE4E5B9)
+_SPLITMIX_C2_U = np.uint64(0x94D049BB133111EB)
+
+
+def _utf8(strings):
+    return [s.encode("utf-8") if isinstance(s, str) else bytes(s)
+            for s in strings]
+
+
+def _fnv1a64_vectorized(strings) -> np.ndarray:
+    """FNV-1a64 and the SplitMix64 finalizer over a batch of strings,
+    vectorized over the batch one byte column at a time (the JAX
+    package's numpy hasher, which its native batch hasher matches bit
+    for bit)."""
+    bs = _utf8(strings)
+    n = len(bs)
+    maxlen = max((len(b) for b in bs), default=0)
+    mat = np.zeros((n, maxlen), np.uint8)
+    lens = np.fromiter((len(b) for b in bs), np.int64, count=n)
+    for i, b in enumerate(bs):
+        mat[i, :len(b)] = np.frombuffer(b, np.uint8)
+    h = np.full((n,), _FNV_OFFSET, np.uint64)
+    with np.errstate(over="ignore"):
+        for j in range(maxlen):
+            hj = (h ^ mat[:, j].astype(np.uint64)) * _FNV_PRIME
+            h = np.where(j < lens, hj, h)
+        h = h + _GOLDEN
+        h = (h ^ (h >> np.uint64(30))) * _SPLITMIX_C1_U
+        h = (h ^ (h >> np.uint64(27))) * _SPLITMIX_C2_U
+        h = h ^ (h >> np.uint64(31))
+    out = h.view(np.int64)
+    out[out == EMPTY_KEY] += 1
+    return out
+
+
+def hash_strings(strings, dtype=np.int64, algo: str = "fnv1a") -> np.ndarray:
+    """Host-side fingerprints of string keys as int64 numpy ids (a
+    feature-pipeline boundary op), bit-identical to the JAX package's
+    ``hash_strings``: ``fnv1a`` (default) or ``blake2`` (8-byte BLAKE2b).
+    Neither gives the EMPTY sentinel. The JAX package's native batch
+    hasher gives the fnv1a path's bits faster; here it is numpy only."""
+    if algo == "blake2":
+        out = np.empty(len(strings), dtype=np.uint64)
+        for i, b in enumerate(_utf8(strings)):
+            out[i] = np.frombuffer(hashlib.blake2b(b, digest_size=8).digest(),
+                                   dtype=np.uint64)[0]
+        out = out.view(np.int64).copy()
+        out[out == EMPTY_KEY] += 1
+        return out.astype(dtype)
+    if algo != "fnv1a":
+        raise ValueError(f"unknown algo {algo}")
+    return _fnv1a64_vectorized(strings).astype(dtype)

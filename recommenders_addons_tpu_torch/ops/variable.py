@@ -14,10 +14,10 @@ Training::
 with ``bp_v2`` deltas, deferred dedup (``defer_dedup=True``, or
 ``TFRA_TPU_DEFER_DEDUP=1`` when it is None, on a lookup given a score)
 and ``return_evicted``. The direct KV API: ``accum``, ``import_batch``,
-``remove`` and ``clear``.
+``remove`` and ``clear``. Also the reference's scope store
+(``get_variable``), ``ModelMode`` and ``GraphKeys``.
 
-Waiting for a later slice: ``trainable``, ``grow`` and
-``export_chunked``.
+Not ported yet: ``grow`` and ``export_chunked``.
 """
 
 from __future__ import annotations
@@ -25,9 +25,11 @@ from __future__ import annotations
 import dataclasses
 import enum
 import os
+import threading
 import zlib
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from recommenders_addons_tpu_torch.ops import hashtable, initializers, prng
@@ -49,6 +51,27 @@ class EvictStrategy(enum.Enum):
     EPOCHLRU = 2
     EPOCHLFU = 3
     CUSTOMIZED = 4
+
+
+class ModelMode:
+    """The reference's ``ModelMode`` (train or inference), one setting for
+    the process."""
+
+    CURRENT_SETTING = "train"
+    TRAIN = "train"
+    INFERENCE = "inference"
+
+
+def enable_train_mode():
+    ModelMode.CURRENT_SETTING = ModelMode.TRAIN
+
+
+def enable_inference_mode():
+    ModelMode.CURRENT_SETTING = ModelMode.INFERENCE
+
+
+def get_model_mode() -> str:
+    return ModelMode.CURRENT_SETTING
 
 
 @dataclasses.dataclass
@@ -94,6 +117,9 @@ class Variable:
     max_capacity: Optional[int] = None
     bucket_size: int = 64
     initializer: initializers.InitializerT = None
+    # the reference's flag for the Keras-style layers; the table trains
+    # through apply_gradients either way, as in the JAX package
+    trainable: bool = True
     evict_strategy: EvictStrategy = EvictStrategy.LRU
     # None -> int32, int64 for the EPOCH* strategies (as the JAX package)
     score_dtype: Any = None
@@ -440,3 +466,62 @@ class Variable:
 
     def export(self, state: TableState):
         return hashtable.export(self.spec, state)
+
+
+# ---------------------------------------------------------------------------
+# get_variable's scope store (the reference's variable scope dedup)
+# ---------------------------------------------------------------------------
+
+_STORE: Dict[str, Variable] = {}
+_STORE_LOCK = threading.Lock()
+
+
+def _same_initializer(a, b) -> bool:
+    """Initializer equality for get_variable's conflict check: the same
+    object, or equal constants (None, scalars, arrays, tensors); two
+    callables only when they are the same object, as in the JAX
+    package."""
+    if a is b:
+        return True
+    if a is None or b is None:
+        return False
+    if callable(a) or callable(b):
+        return False
+    return bool(np.array_equal(torch.as_tensor(a).cpu().numpy(),
+                               torch.as_tensor(b).cpu().numpy()))
+
+
+def get_variable(name: str = "DynamicEmbedding", **kwargs) -> Variable:
+    """Create or reuse a ``Variable`` by name. Asking again for a name
+    with a conflicting keyword (a different ``initializer`` included)
+    raises."""
+    with _STORE_LOCK:
+        if name in _STORE:
+            existing = _STORE[name]
+            for k, v in kwargs.items():
+                if k == "initializer":
+                    if not _same_initializer(existing.initializer, v):
+                        raise ValueError(
+                            f"get_variable('{name}') exists with a "
+                            "different initializer")
+                elif getattr(existing, k, None) != v:
+                    raise ValueError(
+                        f"get_variable('{name}') exists with different {k}")
+            return existing
+        var = Variable(name=name, **kwargs)
+        _STORE[name] = var
+        return var
+
+
+def clear_variable_store():
+    with _STORE_LOCK:
+        _STORE.clear()
+
+
+class GraphKeys:
+    """The reference's collection names (a TF1 concept), kept for its
+    API."""
+
+    DYNAMIC_EMBEDDING_VARIABLES = "dynamic_embedding_variables"
+    TRAINABLE_DYNAMIC_EMBEDDING_VARIABLES = (
+        "trainable_dynamic_embedding_variables")

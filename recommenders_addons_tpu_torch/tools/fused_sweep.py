@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import itertools
 import json
 import re
@@ -119,6 +120,14 @@ class Inputs:
     names: tuple
     pf: int = 1
     step: float = STEP
+
+    @classmethod
+    def of_call(cls, a: dict) -> "Inputs":
+        """The inputs of one recorded ``fused_update_scatter`` call
+        (:func:`record_calls`)."""
+        return cls(a["table2d"], a["ch"], a["cap"], a["idx"], a["packed"],
+                   a["grads"], a["rule"], a["dim"], tuple(a["slot_names"]),
+                   a["pf"], float(a["step"]))
 
     def call(self, table=None, kernel=None) -> None:
         """``cuda_ops.fused_update_scatter`` on ``table`` (default the
@@ -200,6 +209,32 @@ def fused_inputs(dev, gen, rule, pf, cap, n, dim=DIM, foreign=True,
                   step)
 
 
+def record_calls(run, name: str = "fused_update_scatter",
+                 limit: int | None = None) -> list:
+    """Runs ``run()`` and returns the operands of the first ``limit``
+    (default every) calls it makes of ``cuda_ops.<name>``: each call's
+    arguments by name, defaults filled in, its tensors copied before the
+    call's own launch. :meth:`Inputs.of_call` reads a fused apply's."""
+    seen = []
+    real = getattr(cuda_ops, name)
+    sig = inspect.signature(real)
+
+    def record(*args, **kw):
+        if limit is None or len(seen) < limit:
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            seen.append({k: v.clone() if torch.is_tensor(v) else v
+                         for k, v in bound.arguments.items()})
+        return real(*args, **kw)
+
+    setattr(cuda_ops, name, record)
+    try:
+        run()
+    finally:
+        setattr(cuda_ops, name, real)
+    return seen
+
+
 def main_path_inputs(dev, seed: int = 0, cfg=None, batch: int = 4096
                      ) -> Inputs:
     """The kernel's operands as one DLRM training step hands them to it:
@@ -218,26 +253,11 @@ def main_path_inputs(dev, seed: int = 0, cfg=None, batch: int = 4096
     opt_state = tx.init(list(state.dense.parameters()))
     b = dlrm.synthetic_criteo_batch(np.random.default_rng(seed), batch)
     b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-    seen = []
-    real = cuda_ops.fused_update_scatter
-
-    def record(table2d, ch, idx, packed, grads, rule, *, dim, slot_names,
-               cap, step=0.0, pf=1):
-        seen.append(Inputs(table2d.clone(), ch, cap, idx.clone(),
-                           packed.clone(), grads.clone(), rule, dim,
-                           tuple(slot_names), pf, float(step)))
-        return real(table2d, ch, idx, packed, grads, rule, dim=dim,
-                    slot_names=slot_names, cap=cap, step=step, pf=pf)
-
-    cuda_ops.fused_update_scatter = record
-    try:
-        train_step(state, opt_state, b)
-    finally:
-        cuda_ops.fused_update_scatter = real
+    seen = record_calls(lambda: train_step(state, opt_state, b))
     if len(seen) != 1:
         raise AssertionError(f"one DLRM step called the fused apply "
                              f"{len(seen)} times")
-    return seen[0]
+    return Inputs.of_call(seen[0])
 
 
 def max_ulps(a: torch.Tensor, b: torch.Tensor, bits: int) -> int:
