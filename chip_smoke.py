@@ -8,8 +8,9 @@ benchmark's configuration through hit, duplicate, fresh-key and eviction
 batches and through the rest of the training surface (deferred dedup,
 bp_v2, evicted rows, the KV API), trains the model families built on the
 sparse lookup API (DCN at full width, MovieLens, two-tower retrieval,
-seq-and-dense) and the sparse API itself, and runs the kernel tools,
-checking each result against a reference.
+seq-and-dense) and the sparse API itself, runs the table lifecycle
+(checkpoint round trip, restrict policies, grow, chunked export) and the
+kernel tools, checking each result against a reference.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -100,7 +101,24 @@ Phases (any failure exits non-zero):
    with the JAX package's test seeds and sizes, held to the JAX tests'
    bars (MovieLens eval MSE < 1.0, multi-hot < 2.0, retrieval recall >
    0.8, DCN AUC > 0.6, seq-and-dense eval MSE < 0.5).
-7. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
+7. The table lifecycle, launch counts reset first (row_gather,
+   row_scatter and fused_update_scatter must launch). (a) DLRMConfig()
+   trains 20 steps of 4096; DECheckpoint saves its table, towers and
+   tower optimizer state, and a fresh DLRM restores them: the per-key
+   export (keys, value and slot words, scores) bit-equal, the towers
+   and optimizer state equal, 3 more steps from both with losses within
+   rtol 1e-6 (the largest gap printed), and the table's files written
+   from the card byte-identical to those written from a CPU copy. (b) A
+   table of the table step's width (dim 64, 2Mi slots, Adam slots, 1 KiB
+   rows) filled by import_batch with 1.5Mi keys and int32 scores from a
+   seeded permutation with ties: TimestampRestrictPolicy on an LRU view
+   and FrequencyRestrictPolicy on an LFU view down to 1Mi keys, the
+   survivors exactly numpy's top by (score, slot); lowest_k_indices of
+   100,000 against numpy. (c) grow to 4Mi slots: every key's value, slot
+   rows and score bit-equal, and a lookup of all of them finds them.
+   (d) export_chunked in 1Mi-slot chunks equals the export. Save and
+   restore ms, GB written, keys/s, restrict, grow and export ms.
+8. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
    dma_bench.py) at its two full-width shapes, 2Mi rows of 2 chunks (its
    default) and 4Mi rows of 1: every variant of its two lists, a
    predicated gather (row and premultiplied predicate) and a predicated
@@ -114,7 +132,7 @@ Phases (any failure exits non-zero):
    index_copy_); then its four kernels' plain versions timed, and the two
    gathers' ms over their bound and over index_select, with a
    torch.profiler trace of 10 calls each (device busy share, kernel ms).
-8. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
+9. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
    and ab_radix_plan.py). ab_fused against its plain version at the
    fused-apply probe's full width (2Mi rows of 1 KiB, N = 66,573 unique
    indices, v >= 0), every mode x sub x nbuf: identity and rawcopy
@@ -133,14 +151,15 @@ Phases (any failure exits non-zero):
    (ns/row of its five variants; ns/key of its four).
 
 Each main path (serving, DLRM training, table step, the five parts of
-the training surface, the DCN, the sparse API, the learning bars,
-dma_bench, ab_kernel_cost, ab_radix_plan) is
+the training surface, the DCN, the sparse API, the learning bars, the
+lifecycle, dma_bench, ab_kernel_cost, ab_radix_plan) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
 
 Output: the card's name and power limit on a line of its own,
 ``{"serving": ...}``, ``{"training": ...}``,
-``{"training_surface": ...}``, ``{"models": ...}``, ``{"dma_bench": ...}``,
+``{"training_surface": ...}``, ``{"models": ...}``, ``{"lifecycle": ...}``,
+``{"dma_bench": ...}``,
 ``{"ab_tools": ...}``, ``{"kernels": [...]}`` and last
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -203,6 +222,13 @@ HIST_N_BIG = 1 << 22  # radix_hist over a grid of many clusters
 DCN_STEPS = 20
 NARROW_RTOL, NARROW_ATOL = 1e-4, 1e-5
 SPARSE_ROWS, SPARSE_LEN, SPARSE_CAP = 8192, 8, 1 << 18
+# the lifecycle phase: DLRM's steps before the checkpoint and after the
+# restore (losses of the two within LIFE_LOSS_RTOL); a table of the table
+# step's width filled with LIFE_N keys, restricted to LIFE_RESERVED,
+# grown to LIFE_GROW slots and exported in LIFE_SPLIT-slot chunks
+LIFE_DLRM_STEPS, LIFE_EXTRA_STEPS, LIFE_LOSS_RTOL = 20, 3, 1e-6
+LIFE_CAP, LIFE_N, LIFE_RESERVED = 1 << 21, 3 << 19, 1 << 20
+LIFE_GROW, LIFE_SPLIT, LIFE_LOWEST_K = 1 << 22, 1 << 20, 100_000
 
 _F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per updated column of Adagrad (ops/optimizer.py:
@@ -1417,6 +1443,264 @@ def models_phase(torch, cuda_ops, dev, seed):
             "learning_bars": _learning_bars(torch, cuda_ops)}
 
 
+def _per_key(torch, var, st):
+    """A table's live rows sorted by key, on its device: keys, scores and
+    the used columns (value and slot words) as int32 words."""
+    from recommenders_addons_tpu_torch.ops import hashtable
+
+    idx = torch.nonzero(hashtable.occupancy_mask(var.spec, st)).reshape(-1)
+    keys, order = torch.sort(st.keys[idx])
+    sel = idx[order]
+    w = st.dim * (1 + len(st.slot_names))
+    rows = st.rows_logical[sel, :w].contiguous()
+    return {"keys": keys, "scores": st.scores[sel],
+            "rows": rows.view(torch.int32) if rows.dtype == torch.float32
+            else rows.view(torch.int16)}
+
+
+def _same_per_key(torch, a, b, what):
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differ key by key")
+
+
+def _dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def _lifecycle_checkpoint(torch, dev, seed, tmp):
+    """(a) The DLRM round trip: train DLRMConfig() LIFE_DLRM_STEPS steps,
+    DECheckpoint the table, towers and tower optimizer state, restore
+    into a fresh DLRM, hold the per-key export bit-equal, take
+    LIFE_EXTRA_STEPS more steps from both (losses within LIFE_LOSS_RTOL),
+    and hold the card's files byte-equal to a CPU copy's."""
+    import filecmp
+    import os
+
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.models import dlrm
+    from recommenders_addons_tpu_torch.train import checkpoint as ckpt_lib
+
+    def fresh(s):
+        model = dlrm.DLRM(dlrm.DLRMConfig())
+        st = model.init(s)
+        st.table = de.create_slots(model.var, st.table, model.opt)
+        step, tx = model.make_train_step()
+        return model, st, step, tx.init(list(st.dense.parameters()))
+
+    rng = np.random.default_rng(seed)
+    batches = [_on(torch, dlrm.synthetic_criteo_batch(rng, DLRM_BATCH), dev)
+               for _ in range(LIFE_DLRM_STEPS + LIFE_EXTRA_STEPS)]
+    model, st, step, opt = fresh(seed)
+    for b in batches[:LIFE_DLRM_STEPS]:
+        st, opt, loss = step(st, opt, b)
+    float(loss)  # the steps are done
+    ckpt = ckpt_lib.DECheckpoint(table=model.var, dense=None, opt=None)
+    card_dir = os.path.join(tmp, "card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(card_dir, {"table": st.table, "dense": st.dense, "opt": opt},
+              step=LIFE_DLRM_STEPS)
+    torch.cuda.synchronize()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    written = _dir_bytes(card_dir)
+    live = int(model.var.size(st.table))
+
+    # the same table saved from a CPU copy (the plain gather)
+    cpu_dir = os.path.join(tmp, "cpu")
+    cpu_table = st.table.replace(**{f: getattr(st.table, f).cpu() for f in
+                                    ("key_lo", "key_hi", "rows", "scores")})
+    ckpt_lib.save_dynamic_embedding(model.var, cpu_table, cpu_dir,
+                                    global_step=LIFE_DLRM_STEPS)
+    del cpu_table
+    sub = os.path.join(f"{ckpt_lib.DE_DIR_NAME}-{LIFE_DLRM_STEPS}",
+                       model.var.name)
+    names = sorted(os.listdir(os.path.join(cpu_dir, sub)))
+    if sorted(os.listdir(os.path.join(card_dir, sub))) != names:
+        raise AssertionError("lifecycle (a): card and CPU saves wrote "
+                             "different files")
+    same, diff, err = filecmp.cmpfiles(os.path.join(card_dir, sub),
+                                       os.path.join(cpu_dir, sub), names,
+                                       shallow=False)
+    if diff or err:
+        raise AssertionError(f"lifecycle (a): files differ card vs CPU: "
+                             f"{diff + err}")
+
+    model2, st2, step2, opt2 = fresh(seed + 1)
+    st2.table = model2.var.init()  # the restore adds the slot column
+    ckpt2 = ckpt_lib.DECheckpoint(table=model2.var, dense=None, opt=None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ckpt2.restore(card_dir, {"table": st2.table, "dense": st2.dense,
+                                   "opt": opt2})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    _same_per_key(torch, _per_key(torch, model2.var, out["table"]),
+                  _per_key(torch, model.var, st.table), "lifecycle (a)")
+    for a, b in zip(out["dense"].state_dict().values(),
+                    st.dense.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError("lifecycle (a): dense towers differ")
+    if not all(torch.equal(a, b) for a, b in zip(out["opt"], opt)):
+        raise AssertionError("lifecycle (a): tower optimizer state differs")
+    st2 = dlrm.DLRMState(table=out["table"], dense=out["dense"],
+                         step=st.step)
+    opt2 = out["opt"]
+    gaps = []
+    for b in batches[LIFE_DLRM_STEPS:]:
+        st, opt, l1 = step(st, opt, b)
+        st2, opt2, l2 = step2(st2, opt2, b)
+        l1, l2 = float(l1), float(l2)
+        gaps.append(abs(l1 - l2))
+        if not abs(l1 - l2) <= LIFE_LOSS_RTOL * abs(l1):
+            raise AssertionError(f"lifecycle (a): losses after the restore "
+                                 f"{l1} and {l2}")
+    return {"config": "DLRMConfig() (dim 64, 4Mi slots, Adagrad), batch "
+                      f"{DLRM_BATCH}, {LIFE_DLRM_STEPS} steps, then "
+                      f"{LIFE_EXTRA_STEPS} from the original and from the "
+                      "restore",
+            "live_keys": live, "save_ms": save_ms,
+            "bytes_written": written, "gb_written": written / 1e9,
+            "restore_ms": restore_s * 1e3, "restore_keys_per_s":
+            live / restore_s, "files": names,
+            "card_vs_cpu_files_identical": len(same),
+            "extra_step_loss_max_gap": max(gaps),
+            "loss_rtol": LIFE_LOSS_RTOL}
+
+
+def _survivors_check(torch, spec, before, after, num_reserved, what):
+    """The survivors of a restriction are exactly numpy's top
+    ``num_reserved`` live slots by (score, slot); their keys and scores
+    unchanged."""
+    from recommenders_addons_tpu_torch.ops import hashtable
+
+    mask = hashtable.occupancy_mask(spec, before).cpu().numpy()
+    sc = before.scores.cpu().numpy()
+    live = np.flatnonzero(mask)
+    order = live[np.lexsort((live, sc[live]))]
+    want = np.zeros_like(mask)
+    want[order[len(order) - num_reserved:]] = True
+    got = hashtable.occupancy_mask(spec, after).cpu().numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: survivors differ from numpy's top "
+                             f"{num_reserved} in {int((got != want).sum())} "
+                             f"slots")
+    for f in ("key_lo", "key_hi", "scores"):
+        a = getattr(after, f).cpu().numpy()[want]
+        if not np.array_equal(a, getattr(before, f).cpu().numpy()[want]):
+            raise AssertionError(f"{what}: survivors' {f} changed")
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _lifecycle_table(torch, dev, seed):
+    """(b) restrict, (c) grow and (d) the chunked export at the table
+    step's width: dim 64, LIFE_CAP slots, Adam slots (1 KiB rows)."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.ops import hashtable
+
+    rng = np.random.default_rng(seed + 2)
+    keys = np.unique(rng.integers(1, 1 << 62, size=LIFE_N + LIFE_N // 64))
+    keys = rng.permutation(keys)[:LIFE_N].astype(np.int64)
+    scores = (rng.permutation(LIFE_N) // 4).astype(np.int32)  # ties of 4
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rows():
+        return torch.randn((LIFE_N, DIM), device=dev, generator=gen)
+
+    lru = de.Variable(name="life_table", dim=DIM, init_capacity=LIFE_CAP,
+                      evict_strategy=de.EvictStrategy.LRU)
+    lfu = dataclasses.replace(lru, evict_strategy=de.EvictStrategy.LFU)
+    st = de.create_slots(lru, lru.init(), de.Adam(0.001))
+    st = lru.import_batch(st, torch.from_numpy(keys).to(dev), rows(),
+                          scores=torch.from_numpy(scores).to(dev),
+                          slot_rows={nm: rows() for nm in st.slot_names})
+    live = int(lru.size(st))
+    out = {"config": f"dim {DIM}, {LIFE_CAP} slots, Adam slots (1 KiB "
+                     f"rows), {LIFE_N} keys imported, int32 scores from a "
+                     "seeded permutation // 4", "live": live}
+
+    # (b) the two policies, and lowest_k_indices against numpy
+    for name, var, policy in (
+            ("timestamp", lru, de.TimestampRestrictPolicy),
+            ("frequency", lfu, de.FrequencyRestrictPolicy)):
+        got, ms = _timed(torch, lambda: policy(var).apply_restriction(
+            st, LIFE_RESERVED))
+        _survivors_check(torch, var.spec, st, got, LIFE_RESERVED,
+                         f"lifecycle (b) {name}")
+        out[f"restrict_{name}_ms"] = ms
+        del got
+    idx, valid = hashtable.lowest_k_indices(
+        st.scores, hashtable.occupancy_mask(lru.spec, st), LIFE_LOWEST_K)
+    mask = hashtable.occupancy_mask(lru.spec, st).cpu().numpy()
+    sc = st.scores.cpu().numpy()
+    lv = np.flatnonzero(mask)
+    want = np.sort(lv[np.lexsort((lv, sc[lv]))][:LIFE_LOWEST_K])
+    if not (np.array_equal(idx.cpu().numpy(), want) and bool(valid.all())):
+        raise AssertionError("lifecycle (b): lowest_k_indices differs from "
+                             "numpy")
+
+    # (c) grow to LIFE_GROW slots: per key bit-equal, and every key found
+    before = _per_key(torch, lru, st)
+    (gvar, grown), out["grow_ms"] = _timed(
+        torch, lambda: lru.grow(st, LIFE_GROW))
+    del st
+    torch.cuda.empty_cache()
+    _same_per_key(torch, _per_key(torch, gvar, grown), before,
+                  "lifecycle (c) grow")
+    vals, found = gvar.lookup(grown, before["keys"], return_exists=True)
+    if not bool(found.all()):
+        raise AssertionError("lifecycle (c): a key was not found after grow")
+    if not torch.equal(vals.view(torch.int32),
+                       before["rows"][:, :DIM].contiguous()):
+        raise AssertionError("lifecycle (c): looked-up rows differ")
+    out["grown_capacity"] = grown.capacity
+
+    # (d) the chunked export equals the export
+    parts, out["export_chunked_ms"] = _timed(
+        torch, lambda: list(gvar.export_chunked(grown, LIFE_SPLIT)))
+    k, v, m = gvar.export(grown)
+    s = grown.scores[m]
+    for i, (a, b) in enumerate(((k[m], 0), (v[m], 1), (s, 2))):
+        got = torch.cat([p[b] for p in parts])
+        if not torch.equal(got, a.cpu()):
+            raise AssertionError(f"lifecycle (d): export_chunked column {i} "
+                                 "differs from the export")
+    out["export_chunks"] = len(parts)
+    return out
+
+
+def lifecycle_phase(torch, cuda_ops, dev, seed):
+    """Phase 7: the table lifecycle at full width, launch counts reset
+    first: (a) the DLRM checkpoint round trip, (b) the restrict policies,
+    (c) grow, (d) the chunked export. row_gather, row_scatter and
+    fused_update_scatter must have launched."""
+    import shutil
+
+    cuda_ops.reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    try:
+        ckpt = _lifecycle_checkpoint(torch, dev, seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    table = _lifecycle_table(torch, dev, seed)
+    launches = _launched(cuda_ops, "", ("row_gather", "row_scatter",
+                                        "fused_update_scatter"),
+                         phase="lifecycle")
+    torch.cuda.empty_cache()
+    return {"checkpoint": ckpt, "table": table, "launches": launches}
+
+
 def _dma_inputs(torch, dev, gen, cap, ch, n):
     """A [cap*ch, 128] table of random words; gather indices (random
     rows) and scatter indices (unique rows), each with sentinels,
@@ -1436,7 +1720,7 @@ def _dma_inputs(torch, dev, gen, cap, ch, n):
 
 
 def dma_bench_phase(torch, cuda_ops, dev, gen, card):
-    """Phase 7: the row-copy micro-benchmark (tools/dma_bench.py) at its
+    """Phase 8: the row-copy micro-benchmark (tools/dma_bench.py) at its
     two full-width shapes: every variant of its lists, plus a predicated
     gather (row and premultiplied predicate) and a predicated scatter,
     held bit-exact against its plain version at a ragged N; then the
@@ -1609,7 +1893,7 @@ def _ab_fused_check(torch, fn, mode, table, want, idx, packed, g):
 
 
 def ab_tools_phase(torch, cuda_ops, dev, gen, rate, card):
-    """Phase 8: the fused-apply probe's kernel (ab_fused) against its
+    """Phase 9: the fused-apply probe's kernel (ab_fused) against its
     plain version at the probe's full width, every mode and knob; the
     radix-histogram probe's kernel (radix_hist) against torch.bincount;
     each timed beside its plain version; then both tools' main(), the
@@ -1810,6 +2094,10 @@ def main(argv=None) -> int:
     models = models_phase(torch, cuda_ops, dev, args.seed)
     models["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    life = lifecycle_phase(torch, cuda_ops, dev, args.seed)
+    life["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     dma_kernels, dma = dma_bench_phase(torch, cuda_ops, dev, gen, card)
     kernels += dma_kernels
     torch.cuda.empty_cache()
@@ -1823,6 +2111,7 @@ def main(argv=None) -> int:
              "models_dcn": models["dcn"]["launches"],
              "models_sparse_api": models["sparse_api"]["launches"],
              "models_learning_bars": models["learning_bars"]["launches"],
+             "lifecycle": life["launches"],
              "dma_bench": dma["launches"], **ab["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -1844,6 +2133,7 @@ def main(argv=None) -> int:
                                        card=card)}))
     print(json.dumps({"training_surface": dict(surface, card=card)}))
     print(json.dumps({"models": dict(models, card=card)}))
+    print(json.dumps({"lifecycle": dict(life, card=card)}))
     print(json.dumps({"dma_bench": dma}))
     print(json.dumps({"ab_tools": ab}))
     print(json.dumps({"kernels": kernels}))

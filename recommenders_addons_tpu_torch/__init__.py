@@ -17,7 +17,11 @@ lookup API (``de.embedding_lookup_sparse``,
 ``de.safe_embedding_lookup_sparse``, ``de.apply_sparse_gradients``), the
 layers (``nn`` / ``keras.layers``) and the model families in ``models/``
 (DLRM, DCN, MovieLens, two-tower retrieval, seq-and-dense), driven by
-``train.train_loop`` or their ``run_demo``.
+``train.train_loop`` or their ``run_demo``; and the table lifecycle:
+restrict policies, ``Variable.grow``, chunked exports, the object tables
+(``de.CuckooHashTable``, ``de.HkvHashTable``), warm start and KV-native
+checkpoints (``train.DECheckpoint``), whose sidecar files are the JAX
+package's byte for byte.
 """
 
 from __future__ import annotations

@@ -2,8 +2,11 @@
 names: tables (``Variable``, ``raw_table``), the sparse optimizers, the
 sparse lookup API (``embedding_lookup_sparse``,
 ``safe_embedding_lookup_sparse``, the ragged lookups), ``de.math`` and
-``data_flow``, the scope store (``get_variable``), string hashing and
-the serving format.
+``data_flow``, the scope store (``get_variable``), string hashing, the
+serving format, and the table lifecycle: the object tables and their
+creators (``CuckooHashTable``, ``HkvHashTable``, ``RedisTable``,
+``KVCreator``), the shadow ops, the restrict policies and warm start.
+The spill tier's names wait for the port of ``ops/spill.py``.
 
 Usage::
 
@@ -64,6 +67,39 @@ from recommenders_addons_tpu_torch.ops.sparse import (  # noqa: F401
     sparse_reshape,
 )
 from recommenders_addons_tpu_torch.ops import sparse as ragged_embedding_ops  # noqa: F401
+from recommenders_addons_tpu_torch.ops.table_api import (  # noqa: F401
+    CuckooHashTable,
+    CuckooHashTableConfig,
+    CuckooHashTableCreator,
+    DynamicEmbeddingSaver,
+    FileSystemSaver,
+    HkvHashTable,
+    HkvHashTableConfig,
+    HkvHashTableCreator,
+    KVCreator,
+    RedisTable,
+    RedisTableConfig,
+    RedisTableCreator,
+)
+from recommenders_addons_tpu_torch.ops import shadow_ops  # noqa: F401
+from recommenders_addons_tpu_torch.ops.shadow_ops import (  # noqa: F401
+    DEResourceVariable,
+    DistributedVariableWrapper,
+    EmbeddingWeights,
+    HvdVariable,
+    ShadowVariable,
+    TrainableWrapper,
+    trainable_wrapper_filter,
+)
+from recommenders_addons_tpu_torch.ops.restrict import (  # noqa: F401
+    FrequencyRestrictPolicy,
+    RestrictPolicy,
+    TimestampRestrictPolicy,
+)
+from recommenders_addons_tpu_torch.ops.warm_start import (  # noqa: F401
+    WarmStartHook,
+    warm_start,
+)
 from recommenders_addons_tpu_torch.ops import serving  # noqa: F401
 from recommenders_addons_tpu_torch.ops.serving import (  # noqa: F401
     FrozenTable,

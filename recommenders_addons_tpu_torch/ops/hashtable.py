@@ -26,7 +26,9 @@ helpers, slot columns, the key/score commits of the fused apply, the
 grad combines ``segment_sum_rows`` and ``sorted_combine_batch``), and the
 rest of the write surface: commits with ``deltas`` (bp_v2) and
 ``return_evicted``, ``accum``, ``dedup_sum``, ``scatter_packed``,
-``scatter_rows``, ``remove`` and ``clear``. Where the JAX package
+``scatter_rows``, ``remove`` and ``clear``; and score eviction
+(``export_with_scores``, the radix select ``radix_select_threshold``,
+``lowest_k_indices``, ``evict_lowest``). Where the JAX package
 branches with ``lax.cond``, the port branches in Python on a value read
 back from the device (a host sync); each such read is marked
 ``# host sync``.
@@ -1190,6 +1192,128 @@ def export(spec: TableSpec, state: TableState):
     """Full dump ``(keys [C], values [C, D], mask [C])``; compaction is
     the caller's."""
     return state.keys, state.values, occupancy_mask(spec, state)
+
+
+def export_with_scores(spec: TableSpec, state: TableState):
+    """``(keys [C], values [C, D], scores [C], mask [C])`` (HKV's
+    ``export_keys_and_scores``)."""
+    return state.keys, state.values, state.scores, occupancy_mask(spec, state)
+
+
+# ---------------------------------------------------------------------------
+# score eviction: an exact radix select, no capacity-wide sort or top-k
+# ---------------------------------------------------------------------------
+
+
+def _score_bits(scores: torch.Tensor) -> int:
+    return 64 if scores.dtype == torch.int64 else 32
+
+
+def to_unsigned_order(sc: torch.Tensor) -> torch.Tensor:
+    """The JAX package's order-preserving signed -> unsigned map (flip the
+    sign bit), as int64 holding the unsigned bits: int32 scores become
+    ``sc + 2**31`` in ``[0, 2**32)``; int64 scores ``sc ^ 2**63``, whose
+    signed order is restored by :func:`_unsigned_order` (CUDA has no
+    unsigned 64-bit compare)."""
+    if sc.dtype == torch.int64:
+        return sc ^ _INT64_MIN
+    return sc.to(torch.int64) + (1 << 31)
+
+
+def _dead_order(bits: int) -> int:
+    """The largest unsigned ``bits``-wide value, as :func:`to_unsigned_order`
+    holds it (all ones)."""
+    return -1 if bits == 64 else (1 << 32) - 1
+
+
+def radix_select_threshold(u: torch.Tensor, mask: torch.Tensor, k,
+                           bits: int = 64):
+    """Exact k-th-smallest selection over masked unsigned ``bits``-wide
+    scores ``u`` [C] (held as :func:`to_unsigned_order` gives them).
+
+    Returns ``(t, count_below)``: the k-th smallest masked value and the
+    count of masked entries strictly below it, both 0-d device tensors
+    (int64 and int32). ``bits / 8`` byte passes over [C], each a 256-bin
+    histogram by ``scatter_add_`` (``torch.bincount`` would read its
+    maximum back to size its output, a host sync each pass); integer
+    sums are exact, so the cumsum and the bin choice stay on the
+    device."""
+    dev = u.device
+    prefix = torch.zeros((), dtype=torch.int64, device=dev)
+    below = torch.zeros((), dtype=torch.int32, device=dev)
+    remaining = torch.as_tensor(k, device=dev).to(torch.int32)
+    for shift in range(bits - 8, -1, -8):
+        if shift + 8 >= bits:
+            active = mask
+        else:
+            active = mask & ((u >> (shift + 8)) == (prefix >> (shift + 8)))
+        bins = (u >> shift) & 0xFF
+        hist = torch.zeros(256, dtype=torch.int32, device=dev).scatter_add_(
+            0, bins, active.to(torch.int32))
+        cum = torch.cumsum(hist, 0, dtype=torch.int32)
+        b = _argmax_first(cum >= remaining)
+        below_bin = torch.where(b > 0, cum[(b - 1).clamp(min=0).long()], 0)
+        below = below + below_bin
+        remaining = remaining - below_bin
+        prefix = prefix | (b.to(torch.int64) << shift)
+    return prefix, below
+
+
+def _victims(scores: torch.Tensor, mask: torch.Tensor, n_victim):
+    """[C] bool: the ``n_victim`` lowest-score entries where ``mask``, ties
+    broken by slot order (a radix threshold plus a tie-rank cumsum)."""
+    bits = _score_bits(scores)
+    u = torch.where(mask, to_unsigned_order(scores), _dead_order(bits))
+    t, below = radix_select_threshold(u, mask, n_victim, bits)
+    strict = mask & (_unsigned_order(u, bits) < _unsigned_order(t, bits))
+    eq = mask & (u == t)
+    eq_rank = torch.cumsum(eq.to(torch.int32), 0, dtype=torch.int32)
+    return (strict | (eq & (eq_rank <= n_victim - below))) & (n_victim > 0)
+
+
+def lowest_k_indices(scores: torch.Tensor, mask: torch.Tensor,
+                     num_evict: int):
+    """Slot indices of the ``num_evict`` lowest-score entries where
+    ``mask`` (ties broken by slot order), without a capacity-wide sort.
+
+    Returns ``(idx [num_evict] int32, valid [num_evict] bool)``; invalid
+    tail entries (fewer than ``num_evict`` live) point at ``len(scores)``
+    (the drop sentinel)."""
+    cap = scores.shape[0]
+    dev = scores.device
+    live = mask.sum().to(torch.int32)
+    n_victim = live.clamp(max=num_evict)
+    victims = _victims(scores, mask, n_victim)
+    rank = torch.cumsum(victims.to(torch.int32), 0, dtype=torch.int32) - 1
+    idx = _set_drop(
+        torch.full((num_evict,), cap, dtype=torch.int32, device=dev),
+        torch.where(victims, rank, num_evict),
+        torch.arange(cap, dtype=torch.int32, device=dev))
+    valid = torch.arange(num_evict, dtype=torch.int32, device=dev) < n_victim
+    return idx, valid
+
+
+def lowest_score_victims(spec: TableSpec, state: TableState,
+                         num_evict: int):
+    """:func:`lowest_k_indices` over a table's live slots."""
+    return lowest_k_indices(state.scores, occupancy_mask(spec, state),
+                            num_evict)
+
+
+def evict_lowest(spec: TableSpec, state: TableState,
+                 num_evict: int) -> TableState:
+    """Remove the ``num_evict`` lowest-score live keys (their key planes
+    go EMPTY, their scores 0; the rows stay, as in :func:`remove`)."""
+    idx, valid = lowest_score_victims(spec, state, num_evict)
+    idx = torch.where(valid, idx, state.capacity)
+    e_lo, e_hi = _split_int(spec.empty_key)
+    return state.replace(
+        key_lo=_set_drop(state.key_lo, idx,
+                         state.key_lo.new_full((num_evict,), e_lo)),
+        key_hi=_set_drop(state.key_hi, idx,
+                         state.key_hi.new_full((num_evict,), e_hi)),
+        scores=_set_drop(state.scores, idx,
+                         state.scores.new_zeros(num_evict)))
 
 
 # ---------------------------------------------------------------------------

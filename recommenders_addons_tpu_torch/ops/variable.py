@@ -14,10 +14,11 @@ Training::
 with ``bp_v2`` deltas, deferred dedup (``defer_dedup=True``, or
 ``TFRA_TPU_DEFER_DEDUP=1`` when it is None, on a lookup given a score)
 and ``return_evicted``. The direct KV API: ``accum``, ``import_batch``,
-``remove`` and ``clear``. Also the reference's scope store
-(``get_variable``), ``ModelMode`` and ``GraphKeys``.
-
-Not ported yet: ``grow`` and ``export_chunked``.
+``remove`` and ``clear``. The table lifecycle: ``export_keys_and_scores``,
+``export_chunked``, ``grow``, and the restrict policy (``restrict_policy``,
+``policy``, ``restrict``; ops/restrict.py); ``kv_creator`` maps a backend
+config (ops/table_api.py) onto the fields. Also the reference's scope
+store (``get_variable``), ``ModelMode`` and ``GraphKeys``.
 """
 
 from __future__ import annotations
@@ -132,6 +133,12 @@ class Variable:
     # keys -> scores for the CUSTOMIZED strategy (torch tensors in and out)
     gen_scores_fn: Optional[Callable] = None
     defer_dedup: Optional[bool] = None
+    restrict_policy: Any = None  # a policy class, bound lazily (policy)
+    # the reference's signature: one device -> ``device``; more wait for
+    # the port of sharding. ``kv_creator`` contributes backend config
+    # (capacity, evict strategy) through KVCreator.get_variable_kwargs
+    devices: Any = None
+    kv_creator: Any = None
 
     # every value dtype whose container is 32-bit, which the row kernels
     # move (the JAX package's 64-bit and bool tables take XLA paths)
@@ -152,6 +159,18 @@ class Variable:
                             f"(one of {self._VALUE_DTYPES})")
         object.__setattr__(self, "key_dtype", hashtable.torch_dtype(kdt))
         object.__setattr__(self, "value_dtype", hashtable.torch_dtype(vdt))
+        if self.devices:
+            if len(self.devices) > 1:
+                raise NotImplementedError(
+                    "a Variable over several devices waits for the port of "
+                    "sharding (parallel/)")
+            if self.device is None:
+                object.__setattr__(self, "device", self.devices[0])
+        kc = self.kv_creator
+        if kc is not None and hasattr(kc, "get_variable_kwargs"):
+            for k, v in kc.get_variable_kwargs(
+                    dim=self.dim, value_dtype=self.value_dtype).items():
+                object.__setattr__(self, k, v)
 
     @property
     def spec(self) -> TableSpec:
@@ -466,6 +485,102 @@ class Variable:
 
     def export(self, state: TableState):
         return hashtable.export(self.spec, state)
+
+    def export_keys_and_scores(self, state: TableState):
+        k, _, s, m = hashtable.export_with_scores(self.spec, state)
+        return k, s, m
+
+    def export_chunked(self, state: TableState, split_size: int):
+        """Stream the live ``(keys [n], values [n, D], scores [n])`` to the
+        host in chunks of at most ``split_size`` table slots, in slot
+        order (the reference's ``export_keys_and_scores(split_size)``,
+        hkv_hashtable_ops.py:420-434). Each chunk is compacted on the
+        table's device and copied to the host as CPU tensors (bf16 has no
+        numpy dtype); chunks with no live key are skipped. One host sync
+        a chunk (its live count)."""
+        if not (isinstance(split_size, int) and split_size > 0):
+            raise ValueError("split_size must be a positive integer")
+        spec = self.spec
+        cap = state.capacity
+        ch = state.chunks
+        for off in range(0, cap, split_size):
+            n = min(split_size, cap - off)
+            keys = hashtable.join_key(state.key_lo[off:off + n],
+                                      state.key_hi[off:off + n])
+            live = torch.nonzero(keys != spec.empty_key).reshape(-1)
+            if not live.numel():  # host sync
+                continue
+            vals = hashtable._to_logical_rows(
+                state.rows[off * ch:(off + n) * ch], state.value_dtype, n,
+                state.width)[live, :self.dim]
+            yield (keys[live].to(self.key_dtype).cpu(), vals.cpu(),
+                   state.scores[off:off + n][live].cpu())
+
+    def grow(self, state: TableState, new_capacity: int,
+             chunk_size: int = 1 << 16):
+        """Rebuild into a larger table, keeping every live row's value,
+        optimizer slots and score. Streams the old table in
+        ``chunk_size``-slot slices, in slot order, through
+        :meth:`import_batch` (the row-scatter kernel), as the JAX package
+        does; the last slice is padded with EMPTY keys to ``chunk_size``
+        as there. Returns ``(new_var, new_state)``: the returned Variable
+        has the new capacity; use it from then on."""
+        if new_capacity < state.capacity:
+            raise ValueError(
+                f"grow target {new_capacity} < current {state.capacity}")
+        new_var = dataclasses.replace(self, init_capacity=int(new_capacity),
+                                      max_capacity=None)
+        new_state = hashtable.create(new_var.spec, state.device)
+        for name in state.slot_names:
+            new_state = hashtable.with_slot(new_state, name,
+                                            state.slot_init(name))
+        d, ch = self.dim, state.chunks
+        e_lo, e_hi = hashtable._split_int(self.empty_key)
+        for off in range(0, state.capacity, chunk_size):
+            n = min(chunk_size, state.capacity - off)
+            pad = chunk_size - n
+            lo, hi = state.key_lo[off:off + n], state.key_hi[off:off + n]
+            phys = state.rows[off * ch:(off + n) * ch]
+            scores = state.scores[off:off + n]
+            if pad:
+                lo = torch.cat([lo, lo.new_full((pad,), e_lo)])
+                hi = torch.cat([hi, hi.new_full((pad,), e_hi)])
+                phys = torch.cat([phys, phys.new_zeros((pad * ch,
+                                                        phys.shape[1]))])
+                scores = torch.cat([scores, scores.new_zeros(pad)])
+            logical = hashtable._to_logical_rows(phys, state.value_dtype,
+                                                 chunk_size, state.width)
+            slot_rows = {nm: logical[:, state.slot_offset(nm):
+                                     state.slot_offset(nm) + d]
+                         for nm in state.slot_names} or None
+            new_state = new_var.import_batch(
+                new_state, hashtable.join_key(lo, hi).to(self.key_dtype),
+                logical[:, :d], scores=scores, slot_rows=slot_rows)
+        return new_var, new_state
+
+    # -- restrict policy (reference Variable(restrict_policy=...),
+    #    dynamic_embedding_variable.py:604-611) -------------------------
+
+    @property
+    def policy(self):
+        """The configured restrict policy (a class), bound to this
+        Variable; None when there is none."""
+        if self.restrict_policy is None:
+            return None
+        return self.restrict_policy(self)
+
+    def restrict(self, state: TableState, num_reserved: int,
+                 trigger=None) -> TableState:
+        """Cap the live-key count through the configured policy (by
+        default :class:`~ops.restrict.TimestampRestrictPolicy`)."""
+        p = self.policy
+        if p is None:
+            from recommenders_addons_tpu_torch.ops.restrict import (
+                TimestampRestrictPolicy,
+            )
+
+            p = TimestampRestrictPolicy(self)
+        return p.apply_restriction(state, num_reserved, trigger)
 
 
 # ---------------------------------------------------------------------------

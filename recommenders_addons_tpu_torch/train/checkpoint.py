@@ -1,0 +1,540 @@
+"""KV-native checkpoints for dynamic-embedding tables, the port of the JAX
+package's ``train/checkpoint.py``: the same sidecar files, byte for byte,
+so each package restores the other's checkpoints.
+
+Layout (the reference's ``<var>_mht_<i+1>of<n>_rank<r>_size<s>`` names)::
+
+    <directory>/TFRADynamicEmbedding[-<global_step>]/
+        <var_name>/
+            meta_rank<r>.json
+            <var_name>_mht_<i+1>of<n>_rank<r>_size<s>-keys     raw LE binary
+            ...-values, -scores, -slots.<slot_name>
+
+Save finds the live slots on the table's device, gathers their value and
+slot columns there in one row gather (``row_gather`` on a card), copies
+only the live rows to the host and writes them in ``buffer_size``-row
+chunks to a temporary file renamed into place. The rows are in ascending
+slot order and the dtypes and meta JSON are the JAX package's, so the
+files are the ones it writes for the same table (16-bit values as their
+raw words: numpy has no bfloat16). Restore reads every shard file set it
+finds, whatever ``<n>`` and rank layout, in ``buffer_size``-row chunks
+through ``Variable.import_batch`` (``row_scatter`` on a card): a one-table
+port restores a checkpoint a sharded JAX table wrote.
+
+Waiting for later slices, each raising meanwhile: sharded tables and the
+direct per-shard restore (sharding), a spill tier's own rows
+(``tier=``, ``save_tier`` / ``load_tier``) and the native writer (the host
+store). A checkpoint's ``tier/`` rows are merged into the table when no
+tier is given, as the JAX package does.
+
+``DECheckpoint`` keeps tables as sidecar files and dense entries
+(``nn.Module``s by their ``state_dict``, tensors, and dicts, lists and
+tuples of them) in ``dense[-<step>].npz`` with a structure string of the
+port's own: dense files are not read across packages (``convert.py``
+carries dense weights).
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import re
+import shutil
+import warnings
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from recommenders_addons_tpu_torch.ops import hashtable
+from recommenders_addons_tpu_torch.ops.variable import Variable
+from recommenders_addons_tpu_torch.utils.config import env_config
+
+DE_DIR_NAME = "TFRADynamicEmbedding"
+
+
+def _resolve_buffer(buffer_size: Optional[int]) -> int:
+    """None -> ``TFRA_TPU_CKPT_BUFFER_KEYS`` (utils.config)."""
+    if buffer_size is not None:
+        return buffer_size
+    return env_config().checkpoint_buffer_keys
+
+
+def _resolve_dir(directory: Optional[str]) -> str:
+    """None -> the ``TFRA_SAVED_KV`` override."""
+    if directory is not None:
+        return directory
+    d = env_config().saved_kv_dir
+    if d is None:
+        raise ValueError(
+            "no checkpoint directory given and TFRA_SAVED_KV is unset")
+    return d
+
+
+def _no_tier(tier):
+    if tier is not None:
+        raise NotImplementedError(
+            "checkpointing a spill tier's rows waits for the port of "
+            "ops/spill.py")
+
+
+def _table_of(var):
+    """The Variable of a table entry; a sharded table raises."""
+    if not isinstance(var, Variable):
+        raise NotImplementedError(
+            f"{type(var).__name__}: sharded tables wait for the port of "
+            "parallel/")
+    return var
+
+
+def save_tier(*_a, **_k):
+    _no_tier(True)
+
+
+def load_tier(*_a, **_k):
+    _no_tier(True)
+
+
+def _de_dir(directory: str, global_step: Optional[int]) -> str:
+    name = DE_DIR_NAME if global_step is None else (
+        f"{DE_DIR_NAME}-{int(global_step)}")
+    return os.path.join(directory, name)
+
+
+def _atomic_write(path: str, write_fn):
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        write_fn(f)
+    os.replace(tmp, path)
+
+
+def _np_dtype(dt) -> np.dtype:
+    """The numpy dtype a file holds ``dt`` as: 16-bit floats as int16
+    words (numpy has no bfloat16; the bytes are the same)."""
+    dt = hashtable.torch_dtype(dt)
+    if dt in (torch.bfloat16, torch.float16):
+        return np.dtype(np.int16)
+    return np.dtype(hashtable.dtype_name(dt))
+
+
+def _host_words(t: torch.Tensor) -> np.ndarray:
+    """A CPU copy of ``t`` as numpy, 16-bit floats as their int16 words."""
+    t = t.contiguous()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+def _from_words(a: np.ndarray, dt) -> torch.Tensor:
+    """The reverse of :func:`_host_words`: a CPU tensor of dtype ``dt``."""
+    dt = hashtable.torch_dtype(dt)
+    t = torch.from_numpy(a)
+    if dt in (torch.bfloat16, torch.float16) and t.dtype == torch.int16:
+        return t.view(dt)
+    return t.to(dt)
+
+
+def _dump_rows(path: str, arr: np.ndarray, buffer_size: int):
+    """Write ``arr``'s rows in ``buffer_size``-row chunks, atomically."""
+    def w(f):
+        for off in range(0, len(arr), buffer_size):
+            f.write(np.ascontiguousarray(arr[off:off + buffer_size]).tobytes())
+
+    _atomic_write(path, w)
+
+
+def _live_rows(var: Variable, state: hashtable.TableState):
+    """The live slots' ``(keys, values, scores, {slot: rows})`` as numpy,
+    in ascending slot order, compacted on the table's device: the value
+    and slot columns in one row gather (``gather_values`` without slots,
+    ``gather_packed`` with them), then one copy of the live rows."""
+    mask = hashtable.occupancy_mask(var.spec, state)
+    idx = torch.nonzero(mask).reshape(-1).to(torch.int32)  # host sync
+    ones = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    d = state.dim
+    if state.slot_names:
+        packed = hashtable.gather_packed(state, idx, ones)
+        cols = _host_words(packed[:, :d * (1 + len(state.slot_names))])
+    else:
+        cols = _host_words(hashtable.gather_values(state, idx, ones))
+    keys = state.keys[idx.long()].cpu().numpy()
+    scores = state.scores[idx.long()].cpu().numpy()
+    slots = {nm: cols[:, state.slot_offset(nm):state.slot_offset(nm) + d]
+             for nm in state.slot_names}
+    return keys, cols[:, :d], scores, slots
+
+
+def save_dynamic_embedding(var, state: hashtable.TableState,
+                           directory: Optional[str] = None,
+                           global_step: Optional[int] = None,
+                           proc_size: int = 1, proc_rank: int = 0,
+                           buffer_size: Optional[int] = None,
+                           tier=None) -> str:
+    """Write one table's keys, values, scores and optimizer slots as
+    sidecar files (one shard, ``1of1``) and its ``meta_rank<r>.json``.
+    ``directory=None`` falls back to ``TFRA_SAVED_KV``, ``buffer_size=None``
+    to ``TFRA_TPU_CKPT_BUFFER_KEYS``. Returns the table's directory."""
+    directory = _resolve_dir(directory)
+    buffer_size = _resolve_buffer(buffer_size)
+    var = _table_of(var)
+    _no_tier(tier)
+    vdir = os.path.join(_de_dir(directory, global_step), var.name)
+    os.makedirs(vdir, exist_ok=True)
+
+    slot_names = sorted(state.slot_names)
+    keys, values, scores, slots = _live_rows(var, state)
+    prefix = os.path.join(
+        vdir, f"{var.name}_mht_1of1_rank{proc_rank}_size{proc_size}")
+    _dump_rows(prefix + "-keys", keys, buffer_size)
+    _dump_rows(prefix + "-values", values, buffer_size)
+    _dump_rows(prefix + "-scores", scores, buffer_size)
+    for s in slot_names:
+        _dump_rows(prefix + f"-slots.{s}", slots[s], buffer_size)
+
+    meta = {
+        "name": var.name,
+        "dim": var.dim,
+        "key_dtype": hashtable.dtype_name(var.key_dtype),
+        "value_dtype": hashtable.dtype_name(var.value_dtype),
+        "score_dtype": hashtable.dtype_name(var.spec.score_dtype),
+        "slot_names": slot_names,
+        "slot_inits": dict(state.slot_inits),
+        "num_shards": 1,
+        "live_keys_this_rank": int(len(keys)),
+        "tier_keys_this_rank": 0,
+        "proc_rank": proc_rank,
+        "proc_size": proc_size,
+    }
+    _atomic_write(os.path.join(vdir, f"meta_rank{proc_rank}.json"),
+                  lambda f: f.write(json.dumps(meta, indent=1).encode()))
+    return vdir
+
+
+def _scan_shard_files(vdir: str, var: Variable):
+    """Inventory the shard file sets without reading row data:
+    ``(prefixes, slot_names, rows_per_prefix)``; ``slot_names`` is the slot
+    set every prefix has (a slot some lack restarts cold)."""
+    key_files = sorted(glob.glob(os.path.join(vdir, "*-keys")))
+    if not key_files:
+        raise FileNotFoundError(f"no KV shard files under {vdir}")
+    kdt = _np_dtype(var.key_dtype)
+    prefixes = [kf[: -len("-keys")] for kf in key_files]
+    rows = [os.path.getsize(kf) // kdt.itemsize for kf in key_files]
+    slot_sets = [{sf.rsplit("-slots.", 1)[1]
+                  for sf in glob.glob(p + "-slots.*")} for p in prefixes]
+    common = set.intersection(*slot_sets) if slot_sets else set()
+    return prefixes, sorted(common), rows
+
+
+class _ShardReader:
+    """Lockstep chunked reader over one shard prefix's files (keys,
+    values, scores and slots, ``m`` rows at a time), as CPU tensors."""
+
+    def __init__(self, prefix: str, var: Variable, slot_names):
+        self.var = var
+        self.kdt = _np_dtype(var.key_dtype)
+        self.vdt = _np_dtype(var.value_dtype)
+        self.sdt = _np_dtype(var.spec.score_dtype)
+        self.remaining = os.path.getsize(prefix + "-keys") // (
+            self.kdt.itemsize)
+        self._kf = open(prefix + "-keys", "rb")
+        self._vf = open(prefix + "-values", "rb")
+        sc_path = prefix + "-scores"
+        self._sf = open(sc_path, "rb") if os.path.exists(sc_path) else None
+        self._slfs = {nm: open(prefix + f"-slots.{nm}", "rb")
+                      for nm in slot_names}
+
+    def read(self, m: int):
+        """The next ``min(m, remaining)`` rows: ``(keys, values, scores,
+        slots)``."""
+        var = self.var
+        d = var.dim
+        m = min(m, self.remaining)
+        self.remaining -= m
+        k = _from_words(np.fromfile(self._kf, dtype=self.kdt, count=m),
+                        var.key_dtype)
+        v = _from_words(np.fromfile(self._vf, dtype=self.vdt,
+                                    count=m * d).reshape(m, d),
+                        var.value_dtype)
+        sc = (np.fromfile(self._sf, dtype=self.sdt, count=m)
+              if self._sf is not None else np.ones((m,), self.sdt))
+        sl = {nm: _from_words(np.fromfile(f, dtype=self.vdt,
+                                          count=m * d).reshape(m, d),
+                              var.value_dtype)
+              for nm, f in self._slfs.items()}
+        return k, v, torch.from_numpy(sc), sl
+
+    def close(self):
+        for f in ([self._kf, self._vf] + ([self._sf] if self._sf else [])
+                  + list(self._slfs.values())):
+            f.close()
+
+
+def _iter_shard_chunks(vdir: str, var: Variable, chunk_rows: int):
+    """Yield ``(keys [m], values [m, D], scores [m], slots {name: [m, D]})``
+    across every shard file set, at most ``chunk_rows`` rows a chunk."""
+    prefixes, slot_names, _ = _scan_shard_files(vdir, var)
+    for p in prefixes:
+        r = _ShardReader(p, var, slot_names)
+        try:
+            while r.remaining:
+                yield r.read(chunk_rows)
+        finally:
+            r.close()
+
+
+def _ensure_restore_slots(var, state, vdir, slot_names):
+    """Add the checkpoint's slot columns (fills from the saved meta)."""
+    if not slot_names:
+        return state
+    slot_inits: Dict[str, float] = {}
+    for mf in glob.glob(os.path.join(vdir, "meta_rank*.json")):
+        with open(mf) as f:
+            slot_inits.update(json.load(f).get("slot_inits", {}))
+    for n in slot_names:
+        state = hashtable.with_slot(state, n, float(slot_inits.get(n, 0.0)))
+    return state
+
+
+def _import_streamed(var: Variable, state, vdir, buffer_size):
+    """Chunked import of every shard file set under ``vdir``."""
+    for keys, values, scores, slots in _iter_shard_chunks(vdir, var,
+                                                          buffer_size):
+        state = var.import_batch(state, keys, values, scores=scores,
+                                 slot_rows=slots or None)
+    return state
+
+
+def load_dynamic_embedding(var, state: hashtable.TableState,
+                           directory: Optional[str] = None,
+                           global_step: Optional[int] = None,
+                           buffer_size: Optional[int] = None,
+                           tier=None) -> hashtable.TableState:
+    """Restore a table's rows from sidecar files into ``state``, streamed
+    in ``buffer_size``-row chunks. Elastic: every saved shard file set is
+    read, whatever the saved shard count and rank layout. A checkpoint's
+    spill-tier rows (``tier/``) are merged into the table, with the JAX
+    package's warning that rows beyond its capacity are dropped."""
+    directory = _resolve_dir(directory)
+    buffer_size = _resolve_buffer(buffer_size)
+    var = _table_of(var)
+    _no_tier(tier)
+    vdir = os.path.join(_de_dir(directory, global_step), var.name)
+    _, slot_names, rows_per = _scan_shard_files(vdir, var)
+
+    merge_tier = False
+    tdir = os.path.join(vdir, "tier")
+    if os.path.isdir(tdir):
+        _, t_slots, t_rows_per = _scan_shard_files(tdir, var)
+        if sum(t_rows_per):
+            warnings.warn(
+                f"checkpoint for '{var.name}' carries {sum(t_rows_per)} "
+                "spill-tier rows but no tier was passed to "
+                "load_dynamic_embedding; merging them into the HBM table "
+                "— rows beyond its capacity will be dropped")
+            merge_tier = True
+            slot_names = sorted(set(slot_names) | set(t_slots))
+
+    state = _ensure_restore_slots(var, state, vdir, slot_names)
+    if sum(rows_per) > 0:
+        state = _import_streamed(var, state, vdir, buffer_size)
+    if merge_tier:
+        state = _import_streamed(var, state, tdir, buffer_size)
+    return state
+
+
+def latest_checkpoint(directory: str) -> Optional[int]:
+    """The largest global step among ``TFRADynamicEmbedding-<step>`` dirs
+    (None if only the unstepped dir exists; raises if there is none)."""
+    steps = []
+    bare = False
+    for d in glob.glob(os.path.join(directory, DE_DIR_NAME + "*")):
+        base = os.path.basename(d)
+        if base == DE_DIR_NAME:
+            bare = True
+        else:
+            m = re.match(re.escape(DE_DIR_NAME) + r"-(\d+)$", base)
+            if m:
+                steps.append(int(m.group(1)))
+    if steps:
+        return max(steps)
+    if bare:
+        return None
+    raise FileNotFoundError(f"no {DE_DIR_NAME}* under {directory}")
+
+
+# ---------------------------------------------------------------------------
+# dense entries: modules, tensors and nested containers of tensors
+# ---------------------------------------------------------------------------
+
+
+def _flatten(obj):
+    """``(structure string, [tensor leaves])`` of a dense entry: an
+    ``nn.Module`` (its ``state_dict``), a tensor, or a dict (keys sorted),
+    list or tuple of them."""
+    if isinstance(obj, torch.nn.Module):
+        sd = obj.state_dict()
+        return "Module(" + ",".join(sd) + ")", list(sd.values())
+    if isinstance(obj, torch.Tensor):
+        return "*", [obj]
+    if isinstance(obj, dict):
+        parts, leaves = [], []
+        for k in sorted(obj):
+            s, lv = _flatten(obj[k])
+            parts.append(f"{k!r}:{s}")
+            leaves += lv
+        return "{" + ",".join(parts) + "}", leaves
+    if isinstance(obj, (list, tuple)):
+        parts, leaves = [], []
+        for v in obj:
+            s, lv = _flatten(v)
+            parts.append(s)
+            leaves += lv
+        br = "[]" if isinstance(obj, list) else "()"
+        return br[0] + ",".join(parts) + br[1], leaves
+    raise TypeError(f"DECheckpoint: a dense entry holds modules, tensors "
+                    f"and dicts, lists and tuples of them, not "
+                    f"{type(obj).__name__}")
+
+
+def _unflatten(obj, leaves):
+    """``obj`` with its tensor leaves taken, in order, from the iterator
+    ``leaves``: a module's loaded in place, tensors made anew on the
+    current leaf's device and dtype."""
+    if isinstance(obj, torch.nn.Module):
+        sd = obj.state_dict()
+        obj.load_state_dict({k: _leaf_like(v, next(leaves))
+                             for k, v in sd.items()})
+        return obj
+    if isinstance(obj, torch.Tensor):
+        return _leaf_like(obj, next(leaves))
+    if isinstance(obj, dict):
+        new = {k: _unflatten(obj[k], leaves) for k in sorted(obj)}
+        return type(obj)((k, new[k]) for k in obj)
+    out = [_unflatten(v, leaves) for v in obj]
+    return out if isinstance(obj, list) else tuple(out)
+
+
+def _leaf_like(cur: torch.Tensor, saved: np.ndarray) -> torch.Tensor:
+    return _from_words(np.array(saved), cur.dtype).to(cur.device)
+
+
+class DECheckpoint:
+    """Object-based checkpoint of a mixed training state: tables as KV
+    sidecar files, dense entries in one ``.npz`` (the reference's
+    ``de.train.DECheckpoint``, train/checkpoint.py:117-406)::
+
+        ckpt = DECheckpoint(table=var, dense=model.dense, opt=None)
+        ckpt.save(dir, state={"table": st, "dense": towers, "opt": o},
+                  step=100)
+        restored = ckpt.restore(dir, state={...})   # the same keys
+
+    A Variable entry is a table; a ``(Variable, tier)`` pair a table with
+    its spill tier (which waits for the port of ops/spill.py); anything
+    else a dense entry, whose object is unused (the state holds it)."""
+
+    def __init__(self, **objects):
+        self._objects = objects
+
+    @staticmethod
+    def _split_entry(v):
+        """``(table or None, tier or None)`` of a checkpoint entry."""
+        if isinstance(v, Variable):
+            return v, None
+        if (isinstance(v, tuple) and len(v) == 2
+                and isinstance(v[0], Variable)):
+            return v[0], v[1]
+        return None, None
+
+    def _is_table(self, v) -> bool:
+        return self._split_entry(v)[0] is not None
+
+    def save(self, directory: str, state: Dict[str, Any],
+             step: Optional[int] = None, proc_size: int = 1,
+             proc_rank: int = 0, keep: Optional[int] = None) -> str:
+        os.makedirs(directory, exist_ok=True)
+        flat = {}
+        for name, obj in self._objects.items():
+            if self._is_table(obj):
+                table, tier = self._split_entry(obj)
+                save_dynamic_embedding(
+                    table, state[name], directory, global_step=step,
+                    proc_size=proc_size, proc_rank=proc_rank, tier=tier)
+            else:
+                structure, leaves = _flatten(state[name])
+                flat[f"{name}::treedef"] = np.asarray(structure)
+                for i, leaf in enumerate(leaves):
+                    flat[f"{name}::{i}"] = _host_words(leaf.detach())
+        if proc_rank == 0 and flat:
+            suffix = "" if step is None else f"-{int(step)}"
+            path = os.path.join(directory, f"dense{suffix}.npz")
+            tmp = path + ".tmp.npz"
+            np.savez(tmp, **flat)
+            os.replace(tmp, path)
+        if keep is not None and proc_rank == 0:
+            self._sweep(directory, keep)
+        return directory
+
+    def restore(self, directory: str, state: Dict[str, Any],
+                step: Optional[int] = "latest") -> Dict[str, Any]:
+        """The state with every entry restored: tables into the given
+        table states, modules loaded in place, tensors made anew. Raises
+        when a dense entry's structure or leaf count changed since the
+        save."""
+        if step == "latest":
+            step = latest_checkpoint(directory)
+        out = dict(state)
+        suffix = "" if step is None else f"-{int(step)}"
+        dense_path = os.path.join(directory, f"dense{suffix}.npz")
+        dense = np.load(dense_path) if os.path.exists(dense_path) else None
+        try:
+            self._restore_entries(directory, state, step, dense, out)
+        finally:
+            if dense is not None:
+                dense.close()
+        return out
+
+    def _restore_entries(self, directory, state, step, dense, out):
+        for name, obj in self._objects.items():
+            if self._is_table(obj):
+                table, tier = self._split_entry(obj)
+                out[name] = load_dynamic_embedding(
+                    table, state[name], directory, global_step=step,
+                    tier=tier)
+            elif dense is not None:
+                structure, leaves = _flatten(state[name])
+                td_key = f"{name}::treedef"
+                if td_key in dense.files:
+                    saved = str(dense[td_key])
+                    if saved != structure:
+                        raise ValueError(
+                            f"DECheckpoint.restore: dense entry '{name}' "
+                            f"structure changed since save.\n"
+                            f"  saved:   {saved}\n  current: {structure}")
+                n_saved = sum(1 for k in dense.files
+                              if k.startswith(f"{name}::") and k != td_key)
+                if n_saved and n_saved != len(leaves):
+                    raise ValueError(
+                        f"DECheckpoint.restore: dense entry '{name}' has "
+                        f"{len(leaves)} leaves but the checkpoint saved "
+                        f"{n_saved}")
+                saved_leaves = iter(
+                    dense[f"{name}::{i}"] if f"{name}::{i}" in dense.files
+                    else _host_words(leaf.detach())
+                    for i, leaf in enumerate(leaves))
+                out[name] = _unflatten(state[name], saved_leaves)
+
+    def _sweep(self, directory: str, keep: int):
+        """Delete stale ``TFRADynamicEmbedding-<step>`` dirs and their
+        ``dense-<step>.npz``, keeping the newest ``keep``."""
+        steps = sorted(
+            int(m.group(1))
+            for d in glob.glob(os.path.join(directory, DE_DIR_NAME + "-*"))
+            if (m := re.match(re.escape(DE_DIR_NAME) + r"-(\d+)$",
+                              os.path.basename(d))))
+        for s in steps[:-keep] if keep else steps:
+            shutil.rmtree(os.path.join(directory, f"{DE_DIR_NAME}-{s}"),
+                          ignore_errors=True)
+            for f in glob.glob(os.path.join(directory, f"dense-{s}.npz")):
+                os.remove(f)

@@ -691,3 +691,81 @@ def test_radix_hist_matches_bincount_on_card(cuda, n, offset):
     # int64 ids are cut to int32 first, as the reference's astype
     assert torch.equal(ab_radix_plan.pallas_hist(
         bids.to(torch.int64) + (1 << 33), 0), got)
+
+
+def _lifecycle_table(device, value_dtype, seed=0):
+    """A 4,096-slot table of dim 16 with Adam's slots, 3,000 random keys
+    and tied int32 scores, filled on the CPU and copied to ``device``."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+
+    rng = np.random.default_rng(seed)
+    var = de.Variable(name="life", dim=16, init_capacity=4096,
+                      value_dtype=value_dtype, device="cpu")
+    st = de.create_slots(var, var.init(), de.Adam(0.001))
+    n = 3000
+    rows = {nm: torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
+            for nm in ("value",) + st.slot_names}
+    st = var.import_batch(
+        st, torch.from_numpy(rng.choice(1 << 40, n, replace=False)),
+        rows.pop("value"),
+        scores=torch.from_numpy(rng.integers(0, 100, n).astype(np.int32)),
+        slot_rows=rows)
+    return var, st.replace(**{f: getattr(st, f).to(device) for f in (
+        "key_lo", "key_hi", "rows", "scores")})
+
+
+def _same_table(a, b):
+    for f in ("key_lo", "key_hi", "scores"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()), f
+    n = a.capacity * a.chunks  # the trash row holds unspecified data
+    assert torch.equal(a.rows[:n].cpu().view(torch.int32),
+                       b.rows[:n].cpu().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_lifecycle_on_card_matches_cpu(cuda, value_dtype, tmp_path):
+    """The table lifecycle on the card against the same calls on a CPU
+    copy: the save's compaction (value and slot columns in one row
+    gather) writes byte-identical files; the restore (row scatter),
+    restrict, grow and the chunked export agree bit for bit."""
+    import dataclasses
+    import filecmp
+    import os
+
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.train import checkpoint as ckpt
+
+    var, cpu = _lifecycle_table("cpu", value_dtype)
+    _, card = _lifecycle_table(cuda, value_dtype)
+    gvar = dataclasses.replace(var, device="cuda")
+    before = cuda_ops.ROW_GATHER.launches
+    ckpt.save_dynamic_embedding(gvar, card, str(tmp_path / "card"))
+    assert cuda_ops.ROW_GATHER.launches == before + 1
+    ckpt.save_dynamic_embedding(var, cpu, str(tmp_path / "cpu"))
+    sub = os.path.join(ckpt.DE_DIR_NAME, "life")
+    names = sorted(os.listdir(tmp_path / "cpu" / sub))
+    assert len(names) == 6
+    _, diff, err = filecmp.cmpfiles(tmp_path / "card" / sub,
+                                    tmp_path / "cpu" / sub, names,
+                                    shallow=False)
+    assert not diff and not err
+    before = cuda_ops.ROW_SCATTER.launches
+    back = ckpt.load_dynamic_embedding(gvar, gvar.init(),
+                                       str(tmp_path / "card"),
+                                       buffer_size=1000)
+    assert cuda_ops.ROW_SCATTER.launches == before + 3
+    _same_table(back, ckpt.load_dynamic_embedding(
+        var, var.init(), str(tmp_path / "cpu"), buffer_size=1000))
+    for policy in (de.TimestampRestrictPolicy, de.FrequencyRestrictPolicy):
+        _same_table(policy(gvar).apply_restriction(card, 1000),
+                    policy(var).apply_restriction(cpu, 1000))
+    gv, grown = gvar.grow(card, 8192, chunk_size=1000)
+    cv, cgrown = var.grow(cpu, 8192, chunk_size=1000)
+    _same_table(grown, cgrown)
+    got = list(gv.export_chunked(grown, 1500))
+    want = list(cv.export_chunked(cgrown, 1500))
+    assert len(got) == len(want) > 1
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
