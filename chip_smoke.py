@@ -9,8 +9,10 @@ batches and through the rest of the training surface (deferred dedup,
 bp_v2, evicted rows, the KV API), trains the model families built on the
 sparse lookup API (DCN at full width, MovieLens, two-tower retrieval,
 seq-and-dense) and the sparse API itself, runs the table lifecycle
-(checkpoint round trip, restrict policies, grow, chunked export) and the
-kernel tools, checking each result against a reference.
+(checkpoint round trip, restrict policies, grow, chunked export), the
+sharded table (parallel/: the DLRM on 4 logical shards of the card, the
+NCCL process-group exchange, sharded checkpoints) and the kernel tools,
+checking each result against a reference.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -118,7 +120,29 @@ Phases (any failure exits non-zero):
    rows and score bit-equal, and a lookup of all of them finds them.
    (d) export_chunked in 1Mi-slot chunks equals the export. Save and
    restore ms, GB written, keys/s, restrict, grow and export ms.
-8. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
+8. The sharded table (``parallel/``) on a mesh of 4 logical shards of
+   the card (``create_mesh(devices=[cuda] * 4)``). (a) DLRMConfig() with
+   ``mesh=``: 4 shards of 1Mi slots with their Adagrad accumulator; 20
+   steps of 4096 through train_loop (the ``sharded_training`` path:
+   row_gather and fused_update_scatter must launch), the loss finite and
+   lower at step 20; ms/step, examples/s, host syncs a step (all, and the
+   routing's own), the dropped keys summed, the live keys per shard, and
+   the exchange's share of the device time of 3 steps (its
+   torch.profiler range). (b) The same seed, 3 steps sharded and
+   unsharded: the same live keys, per-key rows within rtol 1e-5 / atol
+   1e-6, the loss gap. (c) tests/test_sharded.py's hot-key batch scaled
+   to 4096 ids: block 0 one key 1024 times (K = 512): every step takes
+   the dedup retry and drops nothing; rows agree with one table. (d) The
+   narrow DLRM on 4 shards of the card and of the CPU: send_pos, routed,
+   found, inserted, the owners' keys and every shard's key and score
+   planes bit-exact, rows within rtol 1e-5 / atol 1e-6. (e) NCCL, a world
+   of one rank (a FileStore in a temporary directory), S = 1: 3 DLRM
+   steps per key against (b)'s unsharded table, and whether they are
+   bit-equal. (f) (a)'s table saved as 4 shard file sets and restored
+   into 4 shards (the direct path) and into one table, every key's rows,
+   slots and score bit-equal (the ``sharded_checkpoint`` path: row_gather
+   and row_scatter must launch).
+9. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
    dma_bench.py) at its two full-width shapes, 2Mi rows of 2 chunks (its
    default) and 4Mi rows of 1: every variant of its two lists, a
    predicated gather (row and premultiplied predicate) and a predicated
@@ -132,7 +156,7 @@ Phases (any failure exits non-zero):
    index_copy_); then its four kernels' plain versions timed, and the two
    gathers' ms over their bound and over index_select, with a
    torch.profiler trace of 10 calls each (device busy share, kernel ms).
-9. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
+10. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
    and ab_radix_plan.py). ab_fused against its plain version at the
    fused-apply probe's full width (2Mi rows of 1 KiB, N = 66,573 unique
    indices, v >= 0), every mode x sub x nbuf: identity and rawcopy
@@ -152,14 +176,15 @@ Phases (any failure exits non-zero):
 
 Each main path (serving, DLRM training, table step, the five parts of
 the training surface, the DCN, the sparse API, the learning bars, the
-lifecycle, dma_bench, ab_kernel_cost, ab_radix_plan) is
+lifecycle, sharded training, the sharded checkpoint, dma_bench,
+ab_kernel_cost, ab_radix_plan) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
 
 Output: the card's name and power limit on a line of its own,
 ``{"serving": ...}``, ``{"training": ...}``,
 ``{"training_surface": ...}``, ``{"models": ...}``, ``{"lifecycle": ...}``,
-``{"dma_bench": ...}``,
+``{"sharded": ...}``, ``{"dma_bench": ...}``,
 ``{"ab_tools": ...}``, ``{"kernels": [...]}`` and last
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -221,6 +246,9 @@ HIST_N_BIG = 1 << 22  # radix_hist over a grid of many clusters
 # at the training tests' f32 tolerance
 DCN_STEPS = 20
 NARROW_RTOL, NARROW_ATOL = 1e-4, 1e-5
+SHARDS = 4  # the sharded phase's logical shards of the card
+SHARD_CHECK_STEPS = 3
+SHARD_RTOL, SHARD_ATOL = 1e-5, 1e-6  # tests/test_sharded.py:110-113
 SPARSE_ROWS, SPARSE_LEN, SPARSE_CAP = 8192, 8, 1 << 18
 # the lifecycle phase: DLRM's steps before the checkpoint and after the
 # restore (losses of the two within LIFE_LOSS_RTOL); a table of the table
@@ -731,7 +759,8 @@ def _train_full_width(torch, cuda_ops, dev, model, seed, steps, n_extra,
     fused_update_scatter must have launched); then the host syncs of one
     more step and a profiler trace of 3. Returns the numbers, the losses
     by step and a closure that runs one more step (``n_extra`` batches
-    are made for the steps after the main path)."""
+    are made for the steps after the main path); the closure's ``state()``
+    gives the state after the steps run so far."""
     from recommenders_addons_tpu_torch import dynamic_embedding as de
     from recommenders_addons_tpu_torch.models import dlrm
     from recommenders_addons_tpu_torch.train import LoopConfig, train_loop
@@ -768,7 +797,7 @@ def _train_full_width(torch, cuda_ops, dev, model, seed, steps, n_extra,
         if not launches[k]:
             raise AssertionError(f"{k} was not launched in {what}: "
                                  f"{launches}")
-    size = int(model.var.size(state.table))
+    size = int(model.params.size(state.table))
     ms_step = (stamps[steps] - stamps[1]) / (steps - 1) * 1e3
 
     # -- after the checked run: host syncs of one step (its batch already
@@ -779,6 +808,7 @@ def _train_full_width(torch, cuda_ops, dev, model, seed, steps, n_extra,
     def one_step():
         holder[0], _ = step_fn(holder[0], next(extra))
 
+    one_step.state = lambda: holder[0]
     _, syncs = _count_syncs(torch, one_step)
     busy, top = _device_profile(torch, one_step, iters=3, top_n=10)
     out = {
@@ -1382,6 +1412,48 @@ def _learning_bars(torch, cuda_ops):
     return out
 
 
+def _own_call_check(torch, cuda_ops, one_step, n_fused, n_gathers, what):
+    """Kernels 1 and 3 on one more step's own operands against their plain
+    versions: the step's first ``n_gathers`` row gathers bit-exact, and
+    each of its fused applies (it must make ``n_fused``) within
+    ``fused_sweep.compare``'s ulps. Raises on a mismatch."""
+    from recommenders_addons_tpu_torch.tools import fused_sweep as fs
+
+    calls = []
+    gathers = fs.record_calls(
+        lambda: calls.extend(fs.record_calls(one_step)),
+        "gather_rows_2d", limit=n_gathers)
+    gather_err, n_rec = 0, len(gathers)
+    while gathers:
+        a = gathers.pop(0)
+        gather_err = max(gather_err, _same_bits(
+            torch, cuda_ops.gather_rows_2d(**a),
+            cuda_ops.gather_rows_2d_plain(**a)))
+    if not n_rec or gather_err:
+        raise AssertionError(f"row_gather on a {what}'s operands: "
+                             f"{n_rec} calls, {gather_err} apart")
+    if len(calls) != n_fused:
+        raise AssertionError(f"one {what} called the fused apply "
+                             f"{len(calls)} times, not {n_fused}")
+    ulps, err, trash = 0, 0.0, []
+    while calls:
+        inp = fs.Inputs.of_call(calls.pop(0))
+        got = inp.table.clone()
+        inp.call(got)
+        inp.plain(inp.table)
+        torch.cuda.synchronize()
+        u, e = fs.compare(got, inp.table, inp, f"adagrad {what}")
+        ulps, err = max(ulps, u), max(err, e)
+        trash.append(inp.trash_share())
+        del inp, got
+    torch.cuda.empty_cache()
+    return {"row_gather_own_calls": n_rec,
+            "row_gather_own_calls_max_abs_err": gather_err,
+            "fused_own_calls": n_fused,
+            "fused_own_call_ulps_max_abs_err": [ulps, err],
+            "fused_own_call_trash_share": trash}
+
+
 def models_phase(torch, cuda_ops, dev, seed):
     """Phase 6: the model families on the sparse lookup API. (a) DCNConfig()
     at full width, 20 steps of 4,096 through train_loop, then a check of
@@ -1390,7 +1462,6 @@ def models_phase(torch, cuda_ops, dev, seed):
     the JAX tests' learning bars. Launch counts reset before (a), (c) and
     (d)."""
     from recommenders_addons_tpu_torch.models import dcn
-    from recommenders_addons_tpu_torch.tools import fused_sweep as fs
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matrix products are on: the DCN checks "
@@ -1405,37 +1476,12 @@ def models_phase(torch, cuda_ops, dev, seed):
         raise AssertionError(f"DCN losses not finite at steps {bad}: "
                              f"{losses}")
 
-    # -- kernels 1 and 3 on one step's own operands against their plain
-    # versions ------------------------------------------------------------
-    calls = []
-    gathers = fs.record_calls(
-        lambda: calls.extend(fs.record_calls(one_step)),
-        "gather_rows_2d", limit=2)
-    gather_err = 0
-    for a in gathers:
-        gather_err = max(gather_err, _same_bits(
-            torch, cuda_ops.gather_rows_2d(**a),
-            cuda_ops.gather_rows_2d_plain(**a)))
-    if not gathers or gather_err:
-        raise AssertionError(f"row_gather on a DCN step's operands: "
-                             f"{len(gathers)} calls, {gather_err} apart")
-    if len(calls) != 1:
-        raise AssertionError(f"one DCN step called the fused apply "
-                             f"{len(calls)} times")
-    inp = fs.Inputs.of_call(calls[0])
-    got = inp.table.clone()
-    inp.call(got)
-    inp.plain(inp.table)
-    torch.cuda.synchronize()
-    fused = fs.compare(got, inp.table, inp, "adagrad dcn step")
     dcn_out.update(
         config="DCNConfig() (26 sparse + 13 dense features, dim 32, 3 cross "
                "layers 845 x 845, deep 845-256-128, head 973-1; table 4Mi "
                "slots + Adagrad accumulator, f32)",
-        row_gather_own_calls_max_abs_err=gather_err,
-        fused_own_call_ulps_max_abs_err=fused,
-        fused_own_call_trash_share=inp.trash_share())
-    del gathers, calls, inp, got, one_step
+        **_own_call_check(torch, cuda_ops, one_step, 1, 2, "DCN step"))
+    del one_step
     torch.cuda.empty_cache()
     return {"dcn": dcn_out,
             "narrow_dcn": _narrow_reference(torch, dev, seed, "dcn"),
@@ -1444,16 +1490,22 @@ def models_phase(torch, cuda_ops, dev, seed):
 
 
 def _per_key(torch, var, st):
-    """A table's live rows sorted by key, on its device: keys, scores and
-    the used columns (value and slot words) as int32 words."""
+    """A table's live rows (a sharded table's, over all its shards) sorted
+    by key, on its device: keys, scores and the used columns (value and
+    slot words) as int32 words."""
     from recommenders_addons_tpu_torch.ops import hashtable
 
-    idx = torch.nonzero(hashtable.occupancy_mask(var.spec, st)).reshape(-1)
-    keys, order = torch.sort(st.keys[idx])
-    sel = idx[order]
-    w = st.dim * (1 + len(st.slot_names))
-    rows = st.rows_logical[sel, :w].contiguous()
-    return {"keys": keys, "scores": st.scores[sel],
+    keys, scores, rows = [], [], []
+    for part in getattr(st, "shards", [st]):
+        idx = torch.nonzero(hashtable.occupancy_mask(var.spec,
+                                                     part)).reshape(-1)
+        w = part.dim * (1 + len(part.slot_names))
+        keys.append(part.keys[idx])
+        scores.append(part.scores[idx])
+        rows.append(part.rows_logical[idx, :w])
+    keys, order = torch.sort(torch.cat(keys))
+    rows = torch.cat(rows)[order].contiguous()
+    return {"keys": keys, "scores": torch.cat(scores)[order],
             "rows": rows.view(torch.int32) if rows.dtype == torch.float32
             else rows.view(torch.int16)}
 
@@ -1699,6 +1751,381 @@ def lifecycle_phase(torch, cuda_ops, dev, seed):
                          phase="lifecycle")
     torch.cuda.empty_cache()
     return {"checkpoint": ckpt, "table": table, "launches": launches}
+
+
+def _rows_agree(torch, got, want, what):
+    """Two f32 tables' ``_per_key``: the same keys and scores, rows within
+    SHARD_RTOL / SHARD_ATOL. Returns (max |row difference|, bit-equal)."""
+    if not torch.equal(got["keys"], want["keys"]):
+        raise AssertionError(f"{what}: the live keys differ "
+                             f"({got['keys'].numel()} vs "
+                             f"{want['keys'].numel()})")
+    if not torch.equal(got["scores"], want["scores"]):
+        raise AssertionError(f"{what}: scores differ")
+    a, b = got["rows"].view(torch.float32), want["rows"].view(torch.float32)
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    if not torch.allclose(a, b, rtol=SHARD_RTOL, atol=SHARD_ATOL):
+        raise AssertionError(f"{what}: rows differ by {err}")
+    return err, bool(torch.equal(got["rows"], want["rows"]))
+
+
+def _record_lookups(sv, keep=lambda ctx: ctx):
+    """Wrap ``sv.embedding_lookup`` to keep ``keep(ctx)`` of each call."""
+    ctxs = []
+    inner = sv.embedding_lookup
+
+    def recording(*a, **kw):
+        emb, ctx = inner(*a, **kw)
+        ctxs.append(keep(ctx))
+        return emb, ctx
+
+    object.__setattr__(sv, "embedding_lookup", recording)
+    return ctxs
+
+
+def _dlrm_run(torch, model, seed, batches):
+    """``len(batches)`` DLRM steps from ``model.init(seed)`` (Adagrad slots
+    made first): the final state and the losses."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+
+    state = model.init(seed)
+    state.table = de.create_slots(model.var, state.table, model.opt)
+    step, tx = model.make_train_step()
+    opt = tx.init(list(state.dense.parameters()))
+    losses = []
+    for b in batches:
+        state, opt, loss = step(state, opt, b)
+        losses.append(float(loss))
+    return state, losses
+
+
+def _exchange_share(torch, one_step, iters=3):
+    """The exchange's share of the device time of ``iters`` steps, from
+    the torch.profiler ranges the exchange runs in (None when the trace
+    holds no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from recommenders_addons_tpu_torch.parallel.mesh import EXCHANGE_RANGE
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            one_step()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA)
+    # the range's host-side entry: its device time is that of the kernels
+    # launched inside it (the trace's device-side copy of the range would
+    # count them twice)
+    ranges = [e for e in avg if e.key == EXCHANGE_RANGE
+              and e.device_type == DeviceType.CPU]
+    ex = sum(e.device_time_total for e in ranges)
+    calls = sum(e.count for e in ranges)
+    if not busy or not ex:
+        return None, None, calls // iters
+    return ex / busy, ex / iters / 1e3, calls // iters
+
+
+def _sharded_full_width(torch, cuda_ops, dev, seed, mesh):
+    """(a) DLRMConfig() on a mesh of SHARDS logical shards of the card,
+    DLRM_STEPS steps through train_loop (the main path), then the
+    exchange's share of 3 more steps, then kernels 1 and 3 on one more
+    step's own operands (every owner's fused apply and the owners' row
+    gathers) against their plain versions."""
+    from recommenders_addons_tpu_torch.models import dlrm
+    from recommenders_addons_tpu_torch.ops import hashtable
+
+    model = dlrm.DLRM(dlrm.DLRMConfig(), mesh=mesh)
+    sv = model.params
+    # each lookup's drops, retry flag and K (not its context: the owners'
+    # packed rows are 0.1 GB a step)
+    seen = _record_lookups(sv, lambda c: (
+        torch.stack(c.num_dropped).sum(), c.deduped,
+        c.octx[0].unique_keys.shape[0] // SHARDS))
+    syncs0 = sv.stats["host_syncs"]
+    out, losses, one_step = _train_full_width(
+        torch, cuda_ops, dev, model, seed, DLRM_STEPS, 9, "sharded")
+    first, last = losses[1], losses[DLRM_STEPS]
+    if not (math.isfinite(first) and math.isfinite(last) and last < first):
+        raise AssertionError(f"sharded DLRM loss {first} at step 1, {last} "
+                             f"at step {DLRM_STEPS}: not finite and falling")
+    # the routing's own syncs over every lookup so far (the main path,
+    # the sync count's step, the trace's warm-up and 3)
+    routing_syncs = (sv.stats["host_syncs"] - syncs0) / len(seen)
+    main = seen[:DLRM_STEPS]
+    share, ex_ms, calls = _exchange_share(torch, one_step)
+    own = _own_call_check(torch, cuda_ops, one_step, SHARDS, SHARDS,
+                          "sharded step")
+    state = one_step.state()
+    out.update({
+        "shards": SHARDS,
+        "num_dropped_sum": int(sum(d for d, _, _ in main)),
+        "deduped_steps": sum(r for _, r, _ in main),
+        "k_per_pair": main[0][2],
+        "routing_host_syncs_per_step": routing_syncs,
+        "live_keys_per_shard": [int(hashtable.size(sv.spec, st))
+                                for st in state.table.shards],
+        "exchange_share_of_device_time": share,
+        "exchange_ms_per_step": ex_ms, "exchanges_per_step": calls,
+        **own,
+    })
+    return model, state, out
+
+
+def _sharded_vs_unsharded(torch, dev, seed, mesh):
+    """(b) The same seed and batches, SHARD_CHECK_STEPS full-width steps,
+    sharded and unsharded: the same live keys, per-key rows within
+    SHARD_RTOL / SHARD_ATOL, the loss gap. Returns the check and the
+    unsharded table's per-key rows and the batches, for (e)."""
+    from recommenders_addons_tpu_torch.models import dlrm
+
+    rng = np.random.default_rng(seed + 1)
+    batches = [_on(torch, dlrm.synthetic_criteo_batch(rng, DLRM_BATCH), dev)
+               for _ in range(SHARD_CHECK_STEPS)]
+    single = dlrm.DLRM(dlrm.DLRMConfig())
+    st1, l1 = _dlrm_run(torch, single, seed, batches)
+    want = _per_key(torch, single.var, st1.table)
+    del st1
+    sharded = dlrm.DLRM(dlrm.DLRMConfig(), mesh=mesh)
+    st4, l4 = _dlrm_run(torch, sharded, seed, batches)
+    got = _per_key(torch, sharded.var, st4.table)
+    del st4
+    err, same = _rows_agree(torch, got, want, "sharded vs unsharded")
+    torch.cuda.empty_cache()
+    return {"steps": SHARD_CHECK_STEPS, "live_keys": int(want["keys"].numel()),
+            "rows_max_abs_err": err, "rows_bit_equal": same,
+            "losses_sharded": l4, "losses_unsharded": l1,
+            "loss_gap_max": max(abs(a - b) for a, b in zip(l4, l1)),
+            "rtol": SHARD_RTOL, "atol": SHARD_ATOL}, want, batches
+
+
+def _sharded_hot_keys(torch, dev, seed, mesh):
+    """(c) tests/test_sharded.py's hot-key batch scaled to DLRM_BATCH ids
+    on SHARDS shards: block 0 is one key DLRM_BATCH // SHARDS times (more
+    than K), the others distinct keys. Every step must take the dedup
+    retry and drop nothing; rows agree with one unsharded table."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch import parallel
+
+    rng = np.random.default_rng(seed + 2)
+    blk = DLRM_BATCH // SHARDS
+    rest = rng.choice(1 << 40, size=DLRM_BATCH - blk, replace=False) + 100
+    ids = torch.from_numpy(np.concatenate([np.full(blk, 7), rest]).astype(
+        np.int64)).to(dev)
+    grads = [torch.from_numpy(rng.normal(size=(DLRM_BATCH, DIM)).astype(
+        np.float32)).to(dev) for _ in range(SHARD_CHECK_STEPS)]
+
+    def var():
+        return de.Variable(name="hot", dim=DIM, init_capacity=1 << 20,
+                           initializer=de.initializers.normal(0.1))
+
+    single, sv = var(), parallel.ShardedVariable(var(), mesh)
+    opt = de.Adagrad(0.1)
+    s1 = de.create_slots(single, single.init(), opt)
+    s4 = sv.create_slots(sv.init(), opt)
+    for t, g in enumerate(grads):
+        _, ctx = single.embedding_lookup(s1, ids)
+        s1 = single.apply_gradients(s1, ctx, g, opt, step=t)
+        _, sctx = sv.embedding_lookup(s4, ids)
+        dropped = int(torch.stack(sctx.num_dropped).sum())
+        if not sctx.deduped or dropped:
+            raise AssertionError(f"hot keys step {t}: deduped "
+                                 f"{sctx.deduped}, {dropped} dropped")
+        s4 = sv.apply_gradients(s4, sctx, g, opt, step=t)
+    err, same = _rows_agree(torch, _per_key(torch, sv.var, s4),
+                            _per_key(torch, single, s1), "hot keys")
+    return {"batch": DLRM_BATCH, "hot_key_repeats": blk,
+            "k_per_pair": int(sctx.octx[0].unique_keys.shape[0] // SHARDS),
+            "deduped_steps": SHARD_CHECK_STEPS, "num_dropped": 0,
+            "rows_max_abs_err": err, "rows_bit_equal": same}
+
+
+def _sharded_card_vs_cpu(torch, dev, seed):
+    """(d) The narrow DLRM (_narrow_reference's shape) on SHARDS shards of
+    the card and of the CPU from the same weights and batches: per step
+    the routing and owner planes (send_pos, routed, found, inserted, the
+    received keys) and per shard the key and score planes bit-exact;
+    losses within NARROW_RTOL / NARROW_ATOL, rows within SHARD_RTOL /
+    SHARD_ATOL."""
+    from recommenders_addons_tpu_torch import convert
+    from recommenders_addons_tpu_torch import parallel
+    from recommenders_addons_tpu_torch.models import dlrm
+
+    cfg = dlrm.DLRMConfig(num_sparse=4, dim=8, bottom_sizes=(16, 8),
+                          top_sizes=(16, 1), table_capacity=1024)
+    rng = np.random.default_rng(seed)
+    batches = [dlrm.synthetic_criteo_batch(rng, 64, num_sparse=4,
+                                           vocab_per_feature=400)
+               for _ in range(3)]
+    runs, weights = {}, None
+    for where in ("cpu", dev):
+        mesh = parallel.create_mesh(devices=[where] * SHARDS)
+        model = dlrm.DLRM(cfg, mesh=mesh, device=where)
+        ctxs = _record_lookups(model.params)
+        state = model.init(seed)
+        if weights is None:
+            weights = convert.dlrm_dense_to_numpy(state.dense)
+        state.dense = convert.dlrm_dense_from_numpy(weights, cfg,
+                                                    device=where)
+        state.table = model.params.create_slots(state.table, model.opt)
+        step, tx = model.make_train_step()
+        opt = tx.init(list(state.dense.parameters()))
+        losses = []
+        for b in batches:
+            state, opt, loss = step(state, opt, _on(torch, b, where))
+            losses.append(float(loss))
+        runs[str(where)] = (losses, state.table, ctxs)
+    (cl, ct, cc), (gl, gt, gc) = runs["cpu"], runs[str(dev)]
+    if not np.allclose(gl, cl, rtol=NARROW_RTOL, atol=NARROW_ATOL):
+        raise AssertionError(f"sharded narrow losses: card {gl}, CPU {cl}")
+    planes = 0
+    for t, (a, b) in enumerate(zip(gc, cc)):
+        pairs = [("send_pos", a.send_pos, b.send_pos),
+                 ("routed", a.routed, b.routed)]
+        for f in ("found", "inserted", "unique_keys"):
+            pairs.append((f, [getattr(o, f) for o in a.octx],
+                          [getattr(o, f) for o in b.octx]))
+        for name, xs, ys in pairs:
+            for x, y in zip(xs, ys):
+                planes += 1
+                if not torch.equal(x.cpu(), y):
+                    raise AssertionError(f"sharded narrow step {t}: {name} "
+                                         "differs card vs CPU")
+    err = 0.0
+    for i, (g, c) in enumerate(zip(gt.shards, ct.shards)):
+        for f in ("key_lo", "key_hi", "scores"):
+            planes += 1
+            if not torch.equal(getattr(g, f).cpu(), getattr(c, f)):
+                raise AssertionError(f"sharded narrow shard {i} {f}: card "
+                                     "and CPU differ")
+        a, b = g.rows_logical.cpu(), c.rows_logical
+        err = max(err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=SHARD_RTOL, atol=SHARD_ATOL):
+            raise AssertionError(f"sharded narrow shard {i} rows differ by "
+                                 f"{err}")
+    return {"steps": 3, "batch": 64, "losses_card": gl, "losses_cpu": cl,
+            "integer_planes_bit_exact": planes, "rows_max_abs_err": err}
+
+
+def _sharded_process_group(torch, dev, seed, want, batches):
+    """(e) The process-group exchange on the card: NCCL, a world of one
+    rank (a FileStore under a temporary directory; no network), S = 1, the
+    full-width DLRM for (b)'s steps, per key against (b)'s unsharded
+    table."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from recommenders_addons_tpu_torch import parallel
+    from recommenders_addons_tpu_torch.models import dlrm
+    from recommenders_addons_tpu_torch.parallel import multihost
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    multihost.initialize(f"file://{tmp}/store", world_size=1, rank=0,
+                         backend="nccl")
+    try:
+        mesh = multihost.global_mesh(device=dev)
+        if not isinstance(mesh, parallel.GroupMesh):
+            raise AssertionError(f"not a process-group mesh: {mesh}")
+        model = dlrm.DLRM(dlrm.DLRMConfig(), mesh=mesh)
+        state, losses = _dlrm_run(torch, model, seed, batches)
+        got = _per_key(torch, model.var, state.table)
+        del state
+        err, same = _rows_agree(torch, got, want, "process group")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"backend": "nccl", "world_size": 1, "shards": 1,
+            "steps": len(batches), "losses": losses,
+            "rows_max_abs_err": err, "rows_bit_equal_to_unsharded": same}
+
+
+def _sharded_checkpoint(torch, cuda_ops, model, state):
+    """(f) (a)'s table saved as SHARDS shard file sets, restored into a
+    fresh SHARDS-shard table (the direct path) and into one table: every
+    key's rows (value and slot words), score and slot bit-equal to the
+    saved. Launch counts set to 0 first: row_gather (the save's
+    compaction) and row_scatter (the restores) must launch."""
+    import os
+    import shutil
+
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.train import checkpoint as ckpt
+
+    sv = model.params
+    saved = _per_key(torch, sv.var, state)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    cuda_ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        vdir = ckpt.save_dynamic_embedding(sv, state, tmp)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        files = sorted(f for f in os.listdir(vdir) if f.endswith("-keys"))
+        if len(files) != SHARDS:
+            raise AssertionError(f"sharded save wrote {files}")
+        out = {"files": files, "bytes": _dir_bytes(tmp), "save_ms": save_ms,
+               "live_keys": int(saved["keys"].numel())}
+        del state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        back = ckpt.load_dynamic_embedding(sv, sv.init(), tmp)
+        torch.cuda.synchronize()
+        out["restore_sharded_ms"] = (time.perf_counter() - t0) * 1e3
+        if not ckpt.LAST_RESTORE_USED_DIRECT:
+            raise AssertionError("the 4-shard restore took the streamed "
+                                 "path, not the direct one")
+        got = _per_key(torch, sv.var, back)
+        _same_per_key(torch, got, saved, "sharded restore")
+        del back, got
+        torch.cuda.empty_cache()
+        one = de.Variable(name=sv.var.name, dim=sv.var.dim,
+                          init_capacity=sv.var.total_capacity)
+        t0 = time.perf_counter()
+        flat = ckpt.load_dynamic_embedding(one, one.init(), tmp)
+        torch.cuda.synchronize()
+        out["restore_unsharded_ms"] = (time.perf_counter() - t0) * 1e3
+        got = _per_key(torch, one, flat)
+        _same_per_key(torch, got, saved, "unsharded restore")
+        del flat, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = _launched(cuda_ops, "", ("row_gather", "row_scatter"),
+                                phase="sharded checkpoint")
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(torch, cuda_ops, dev, seed):
+    """Phase 8: the sharded table (parallel/) on SHARDS logical shards of
+    the card: (a) the full-width DLRM's main path, (b) against the
+    unsharded DLRM, (c) hot keys, (d) card against CPU, (e) the NCCL
+    process-group exchange, (f) the sharded checkpoint."""
+    from recommenders_addons_tpu_torch import parallel
+
+    mesh = parallel.create_mesh(devices=[dev] * SHARDS)
+    t0 = time.perf_counter()
+    model, state, full = _sharded_full_width(torch, cuda_ops, dev, seed,
+                                             mesh)
+    torch.cuda.empty_cache()
+    vs, want, batches = _sharded_vs_unsharded(torch, dev, seed, mesh)
+    hot = _sharded_hot_keys(torch, dev, seed, mesh)
+    card_cpu = _sharded_card_vs_cpu(torch, dev, seed)
+    group = _sharded_process_group(torch, dev, seed, want, batches)
+    ckpt = _sharded_checkpoint(torch, cuda_ops, model, state.table)
+    return {"mesh": f"{SHARDS} logical shards of one card "
+                    f"([cuda:0] * {SHARDS})",
+            "config": "DLRMConfig() (dim 64, 26 features, 4Mi slots in all: "
+                      f"{SHARDS} shards of {(C // SHARDS) >> 20}Mi + Adagrad "
+                      "accumulator, f32)",
+            "full_width": full, "vs_unsharded": vs, "hot_keys": hot,
+            "card_vs_cpu": card_cpu, "process_group": group,
+            "checkpoint": ckpt, "phase_s": time.perf_counter() - t0,
+            "launches": {"sharded_training": full["launches"],
+                         "sharded_checkpoint": ckpt["launches"]}}
 
 
 def _dma_inputs(torch, dev, gen, cap, ch, n):
@@ -2098,6 +2525,8 @@ def main(argv=None) -> int:
     life = lifecycle_phase(torch, cuda_ops, dev, args.seed)
     life["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    sharded = sharded_phase(torch, cuda_ops, dev, args.seed)
+    torch.cuda.empty_cache()
     dma_kernels, dma = dma_bench_phase(torch, cuda_ops, dev, gen, card)
     kernels += dma_kernels
     torch.cuda.empty_cache()
@@ -2111,7 +2540,7 @@ def main(argv=None) -> int:
              "models_dcn": models["dcn"]["launches"],
              "models_sparse_api": models["sparse_api"]["launches"],
              "models_learning_bars": models["learning_bars"]["launches"],
-             "lifecycle": life["launches"],
+             "lifecycle": life["launches"], **sharded["launches"],
              "dma_bench": dma["launches"], **ab["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -2120,8 +2549,12 @@ def main(argv=None) -> int:
         if k["name"] == "row_gather":
             k["dcn_step_max_abs_err"] = models["dcn"][
                 "row_gather_own_calls_max_abs_err"]
+            k["sharded_step_max_abs_err"] = sharded["full_width"][
+                "row_gather_own_calls_max_abs_err"]
         if k["name"] == "fused_update_scatter":
             k["dcn_step_ulps_max_abs_err"] = models["dcn"][
+                "fused_own_call_ulps_max_abs_err"]
+            k["sharded_step_ulps_max_abs_err"] = sharded["full_width"][
                 "fused_own_call_ulps_max_abs_err"]
     if "jax" in sys.modules or "recommenders_addons_tpu" in sys.modules:
         raise AssertionError("the port run imported JAX or the JAX package")
@@ -2134,6 +2567,7 @@ def main(argv=None) -> int:
     print(json.dumps({"training_surface": dict(surface, card=card)}))
     print(json.dumps({"models": dict(models, card=card)}))
     print(json.dumps({"lifecycle": dict(life, card=card)}))
+    print(json.dumps({"sharded": dict(sharded, card=card)}))
     print(json.dumps({"dma_bench": dma}))
     print(json.dumps({"ab_tools": ab}))
     print(json.dumps({"kernels": kernels}))

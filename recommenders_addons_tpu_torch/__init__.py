@@ -21,7 +21,11 @@ layers (``nn`` / ``keras.layers``) and the model families in ``models/``
 restrict policies, ``Variable.grow``, chunked exports, the object tables
 (``de.CuckooHashTable``, ``de.HkvHashTable``), warm start and KV-native
 checkpoints (``train.DECheckpoint``), whose sidecar files are the JAX
-package's byte for byte.
+package's byte for byte; and sharding (``parallel``): ``ShardedVariable``
+routes each key to its owner shard by all-to-all over an in-process mesh
+(``parallel.create_mesh``; several logical shards may share one card) or
+a ``torch.distributed`` process group (``parallel.GroupMesh``), with the
+``mesh=`` models and layers and sharded checkpoints.
 """
 
 from __future__ import annotations

@@ -7,13 +7,15 @@ metadata), is a copy of four arrays plus the state's metadata. Dense
 weights carry across from the JAX package's parameter trees: an MLP is a
 list of ``{"w": [in, out], "b": [out]}`` layers (``nn/mlp.py``), DLRM's
 towers ``{"bottom", "top"}``, DCN's ``{"cross", "deep", "head"}`` and a
-layer normalization ``{"gamma", "beta"}``. The arrays are numpy, as
+layer normalization ``{"gamma", "beta"}``. A sharded table's arrays
+carry a leading shard axis (``sharded_state_from_numpy``). The arrays
+are numpy, as
 ``jax.device_get`` gives them; nothing here imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +55,31 @@ def table_state_to_numpy(state: TableState) -> Tuple[Dict, Dict]:
     arrays = {f: getattr(state, f).cpu().numpy() for f in ARRAY_FIELDS}
     meta = {f: getattr(state, f) for f in META_FIELDS}
     return arrays, meta
+
+
+def sharded_state_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict,
+                             devices: Sequence,
+                             shard_ids: Optional[Sequence[int]] = None):
+    """A port ``ShardedState`` from a JAX sharded ``TableState``: its four
+    arrays with a leading shard axis ``[S, ...]`` as numpy (what
+    ``jax.device_get`` gives) and its metadata. Shard ``shard_ids[j]``
+    (default: all S) goes to ``devices[j]``."""
+    from recommenders_addons_tpu_torch.parallel.sharded import ShardedState
+
+    s = int(np.shape(arrays["key_lo"])[0])
+    ids = list(range(s)) if shard_ids is None else list(shard_ids)
+    shards = [table_state_from_numpy(
+        {f: np.asarray(arrays[f])[i] for f in ARRAY_FIELDS}, meta,
+        device=dev) for i, dev in zip(ids, devices)]
+    return ShardedState(shards=shards, shard_ids=tuple(ids), num_shards=s)
+
+
+def sharded_state_to_numpy(state) -> Tuple[Dict, Dict]:
+    """The reverse of :func:`sharded_state_from_numpy`: ``(arrays [S,
+    ...], meta)`` of the shards the state holds."""
+    per = [table_state_to_numpy(st) for st in state.shards]
+    arrays = {f: np.stack([a[f] for a, _ in per]) for f in ARRAY_FIELDS}
+    return arrays, per[0][1]
 
 
 def _tensor(a, device) -> torch.Tensor:

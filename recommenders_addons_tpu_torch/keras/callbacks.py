@@ -1,8 +1,9 @@
 """Training-loop callbacks (reference python/keras/callbacks.py:38-196):
 
-* ``DEHvdBroadcastGlobalVariablesCallback`` — with no mesh (one process)
-  there is nothing to broadcast, as in the JAX package; a mesh waits for
-  the port of sharding and raises;
+* ``DEHvdBroadcastGlobalVariablesCallback`` — over a process-group mesh
+  (``parallel.GroupMesh``) every dense tensor is broadcast from
+  ``root_rank``; with no mesh or an in-process one (one process holds the
+  one copy of the dense state) there is nothing to broadcast;
 * ``DEHvdModelCheckpoint`` — a periodic :class:`DECheckpoint` save.
 """
 
@@ -10,14 +11,21 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import torch
+
+from recommenders_addons_tpu_torch.ops.hashtable import TableState
+from recommenders_addons_tpu_torch.parallel.sharded import ShardedState
 from recommenders_addons_tpu_torch.train.checkpoint import DECheckpoint
 
 
 class DEHvdBroadcastGlobalVariablesCallback:
     """Reference keras/callbacks.py:38-106. Call once after building the
-    state: ``__call__(state, mesh=None)`` returns the state. Tables are
-    worker-local and never broadcast; ``local_variables`` (key-path
-    substrings) name dense entries the broadcast must leave alone."""
+    state: ``__call__(state, mesh=None)`` returns the state, its dense
+    tensors (modules' parameters and buffers in place, tensors anew, in
+    dicts, lists and tuples) broadcast from ``root_rank`` when ``mesh`` is
+    a process-group mesh. Tables are worker-local and never broadcast;
+    ``local_variables`` (key-path substrings such as ``"['stats']"``)
+    name dense entries the broadcast must leave alone."""
 
     def __init__(self, root_rank: int = 0, device: str = "",
                  local_variables=None):
@@ -39,11 +47,34 @@ class DEHvdBroadcastGlobalVariablesCallback:
         self._local_paths.add(path_substr)
 
     def __call__(self, state, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "broadcasting over a mesh waits for the port of parallel/")
+        if getattr(mesh, "group", None) is not None:
+            state = self._broadcast(state, mesh.exchange(mesh.axis_names),
+                                    "")
         self.broadcast_done = True
         return state
+
+    def _local(self, path: str) -> bool:
+        return any(p in path for p in self._local_paths)
+
+    def _broadcast(self, obj, x, path: str):
+        if isinstance(obj, (TableState, ShardedState)) or self._local(path):
+            return obj
+        if isinstance(obj, torch.nn.Module):
+            with torch.no_grad():
+                for name, t in obj.state_dict(keep_vars=True).items():
+                    if not self._local(f"{path}.{name}"):
+                        t.copy_(x.broadcast(t, self.root_rank))
+            return obj
+        if isinstance(obj, torch.Tensor):
+            return x.broadcast(obj, self.root_rank)
+        if isinstance(obj, dict):
+            return type(obj)((k, self._broadcast(v, x, f"{path}[{k!r}]"))
+                             for k, v in obj.items())
+        if isinstance(obj, (list, tuple)):
+            out = [self._broadcast(v, x, f"{path}[{i}]")
+                   for i, v in enumerate(obj)]
+            return out if isinstance(obj, list) else tuple(out)
+        return obj
 
 
 class DEHvdModelCheckpoint:

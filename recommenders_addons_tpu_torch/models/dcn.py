@@ -8,7 +8,8 @@ table for all categorical features, keys tagged with the feature id, one
 lookup a step, the row-wise ``Adagrad`` through the fused
 optimizer-scatter kernel. The towers train with Adagrad in optax's form.
 
-The sharded (mesh) variant waits for the port of ``parallel/``.
+With ``mesh=`` the table is a ``parallel.ShardedVariable``; its step
+passes no ``step`` at lookup, as the JAX package's sharded DCN.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from recommenders_addons_tpu_torch.models.dlrm import (
     tag_keys,
 )
 from recommenders_addons_tpu_torch.nn.mlp import MLP
+from recommenders_addons_tpu_torch.parallel.sharded import ShardedVariable
 from recommenders_addons_tpu_torch.utils.config import resolve_device
 
 
@@ -92,13 +94,10 @@ class DCNState:
 class DCN:
     def __init__(self, cfg: DCNConfig = DCNConfig(), mesh=None,
                  axis: str = "ep", device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded DCN waits for the port of parallel/")
-        del axis
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.var = de.Variable(
+        var = de.Variable(
             name="dcn_embeddings",
             dim=cfg.dim,
             init_capacity=cfg.table_capacity,
@@ -107,7 +106,11 @@ class DCN:
             evict_strategy=de.EvictStrategy.LRU,
             device=self.device,
         )
-        self.params = self.var
+        if mesh is not None:
+            self.params = ShardedVariable(var, mesh, axis=axis)
+            self.var = self.params.var
+        else:
+            self.params = self.var = var
         self.opt = de.Adagrad(cfg.sparse_lr)
 
     def init(self, seed: int = 0) -> DCNState:
@@ -115,7 +118,7 @@ class DCN:
         ``seed``."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         dense = DCNDense(self.cfg, self.device, gen)
-        return DCNState(table=self.var.init(), dense=dense, step=0)
+        return DCNState(table=self.params.init(), dense=dense, step=0)
 
     def loss_fn(self, dense, emb_flat, x_dense, labels):
         b = x_dense.shape[0]
@@ -133,16 +136,18 @@ class DCN:
         def train_step(state: DCNState, opt_state, batch):
             keys = tag_keys(batch["sparse"]).reshape(-1)
             # the step at lookup: the LRU score stamp doubles as the
-            # duplicate probe (Variable.embedding_lookup)
-            emb_flat, ctx = self.var.embedding_lookup(
-                state.table, keys, step=state.step + 1)
+            # duplicate probe (Variable.embedding_lookup); the sharded
+            # step passes none, as the JAX package's does
+            kw = {"step": state.step + 1} if self.mesh is None else {}
+            emb_flat, ctx = self.params.embedding_lookup(state.table, keys,
+                                                         **kw)
             emb = emb_flat.detach().requires_grad_(True)
             params = list(state.dense.parameters())
             loss, _ = self.loss_fn(state.dense, emb, batch["dense"],
                                    batch["label"])
             grads = torch.autograd.grad(loss, params + [emb])
-            table = self.var.apply_gradients(state.table, ctx, grads[-1],
-                                             self.opt, step=state.step)
+            table = self.params.apply_gradients(
+                state.table, ctx, grads[-1], self.opt, step=state.step)
             opt_state = tx.apply(params, grads[:-1], opt_state)
             return (DCNState(table=table, dense=state.dense,
                              step=state.step + 1),
@@ -153,7 +158,7 @@ class DCN:
     @torch.no_grad()
     def predict(self, state: DCNState, batch):
         keys = tag_keys(batch["sparse"]).reshape(-1)
-        emb_flat = self.var.lookup(state.table, keys)
+        emb_flat = self.params.lookup(state.table, keys)
         b = batch["dense"].shape[0]
         emb = emb_flat.reshape(b, self.cfg.num_sparse, self.cfg.dim)
         return state.dense(batch["dense"], emb)

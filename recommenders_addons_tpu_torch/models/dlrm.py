@@ -9,7 +9,9 @@ optimizer-scatter kernel, the towers with Adagrad in optax's form
 (:class:`OptaxAdagrad`). A training step is one call of the function
 :meth:`DLRM.make_train_step` returns.
 
-The sharded (mesh) variant waits for the port of ``parallel/``.
+With ``mesh=`` the table is a ``parallel.ShardedVariable`` over the
+mesh's shards (all-to-all routed lookup and apply) and the towers stay
+as they are, on ``device``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 
 from recommenders_addons_tpu_torch import dynamic_embedding as de
 from recommenders_addons_tpu_torch.nn.mlp import MLP
+from recommenders_addons_tpu_torch.parallel.sharded import ShardedVariable
 from recommenders_addons_tpu_torch.utils.config import resolve_device
 
 
@@ -128,13 +131,10 @@ class OptaxAdagrad:
 class DLRM:
     def __init__(self, cfg: DLRMConfig = DLRMConfig(), mesh=None,
                  axis: str = "ep", device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded DLRM waits for the port of parallel/")
-        del axis
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.var = de.Variable(
+        var = de.Variable(
             name="dlrm_embeddings",
             dim=cfg.dim,
             init_capacity=cfg.table_capacity,
@@ -143,14 +143,18 @@ class DLRM:
             evict_strategy=de.EvictStrategy.LRU,
             device=self.device,
         )
-        self.params = self.var
+        if mesh is not None:
+            self.params = ShardedVariable(var, mesh, axis=axis)
+            self.var = self.params.var
+        else:
+            self.params = self.var = var
         self.opt = de.Adagrad(cfg.sparse_lr)
 
     def init(self, seed: int = 0) -> DLRMState:
         """Fresh state: an empty table and towers drawn from ``seed``."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         dense = DenseTowers(self.cfg, self.device, gen)
-        return DLRMState(table=self.var.init(), dense=dense, step=0)
+        return DLRMState(table=self.params.init(), dense=dense, step=0)
 
     def loss_fn(self, dense, emb_flat, x_dense, labels):
         b = x_dense.shape[0]
@@ -167,17 +171,18 @@ class DLRM:
 
         def train_step(state: DLRMState, opt_state, batch):
             keys = tag_keys(batch["sparse"]).reshape(-1)
-            # the step at lookup: the LRU score stamp doubles as the
-            # duplicate probe (Variable.embedding_lookup)
-            emb_flat, ctx = self.var.embedding_lookup(
+            # the step at lookup (both paths): the LRU score stamp
+            # doubles as the duplicate probe (Variable.embedding_lookup;
+            # the sharded path stamps it on each owner)
+            emb_flat, ctx = self.params.embedding_lookup(
                 state.table, keys, step=state.step + 1)
             emb = emb_flat.detach().requires_grad_(True)
             params = list(state.dense.parameters())
             loss, _ = self.loss_fn(state.dense, emb, batch["dense"],
                                    batch["label"])
             grads = torch.autograd.grad(loss, params + [emb])
-            table = self.var.apply_gradients(state.table, ctx, grads[-1],
-                                             self.opt, step=state.step)
+            table = self.params.apply_gradients(
+                state.table, ctx, grads[-1], self.opt, step=state.step)
             opt_state = tx.apply(params, grads[:-1], opt_state)
             return (DLRMState(table=table, dense=state.dense,
                               step=state.step + 1),
@@ -188,7 +193,7 @@ class DLRM:
     @torch.no_grad()
     def predict(self, state: DLRMState, batch):
         keys = tag_keys(batch["sparse"]).reshape(-1)
-        emb_flat = self.var.lookup(state.table, keys)
+        emb_flat = self.params.lookup(state.table, keys)
         b = batch["dense"].shape[0]
         emb = emb_flat.reshape(b, self.cfg.num_sparse, self.cfg.dim)
         return state.dense(batch["dense"], emb)

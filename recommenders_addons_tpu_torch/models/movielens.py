@@ -9,7 +9,7 @@ EMPTY ids, which the apply sends to the trash row. All three tables
 train with the row-wise ``Adam`` (the fused optimizer-scatter kernel),
 the MLP with plain SGD.
 
-The sharded (mesh) variant waits for the port of ``parallel/``.
+With ``mesh=`` each table is a ``parallel.ShardedVariable``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 from recommenders_addons_tpu_torch import dynamic_embedding as de
 from recommenders_addons_tpu_torch.models.common import on_device, sgd_
 from recommenders_addons_tpu_torch.nn.mlp import MLP
+from recommenders_addons_tpu_torch.parallel.sharded import ShardedVariable
 from recommenders_addons_tpu_torch.utils.config import resolve_device
 
 
@@ -50,17 +51,15 @@ class MovieLensState:
 class MovieLensModel:
     def __init__(self, cfg: MovieLensConfig = MovieLensConfig(), mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded MovieLens model waits for the port of "
-                "parallel/")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         init = de.initializers.normal(0.05)
 
         def make(name, cap):
-            return de.Variable(name=name, dim=cfg.dim, init_capacity=cap,
-                               initializer=init, device=self.device)
+            var = de.Variable(name=name, dim=cfg.dim, init_capacity=cap,
+                              initializer=init, device=self.device)
+            return ShardedVariable(var, mesh) if mesh is not None else var
 
         self.user = make("ml_user", cfg.user_capacity)
         self.movie = make("ml_movie", cfg.movie_capacity)
@@ -79,6 +78,15 @@ class MovieLensModel:
             genre=self.genre.init() if self.genre else (),
             dense=dense, step=0)
 
+    def _genre_lookup(self, state, batch, training):
+        """The multi-hot genre rows (the sharded lookup under a mesh)."""
+        g = self.genre
+        sharded = g if self.mesh is not None else None
+        return de.safe_embedding_lookup_sparse(
+            g.var if sharded is not None else g, state.genre,
+            batch["genres"], combiner="mean", training=training,
+            sharded=sharded)
+
     def make_train_step(self):
         """``train_step(state, batch) -> (state, loss)``; the table rows
         and the MLP are updated in place."""
@@ -91,9 +99,7 @@ class MovieLensModel:
                                                        batch["movie"])
             embs = [u_emb, m_emb]
             if cfg.multi_hot_genres:
-                g_emb, g_ctx = de.safe_embedding_lookup_sparse(
-                    self.genre, state.genre, batch["genres"],
-                    combiner="mean", training=True)
+                g_emb, g_ctx = self._genre_lookup(state, batch, True)
                 embs.append(g_emb)
             embs = [e.detach().requires_grad_(True) for e in embs]
             params = list(state.dense.parameters())
@@ -122,9 +128,7 @@ class MovieLensModel:
         feats = [self.user.lookup(state.user, batch["user"]),
                  self.movie.lookup(state.movie, batch["movie"])]
         if self.cfg.multi_hot_genres:
-            feats.append(de.safe_embedding_lookup_sparse(
-                self.genre, state.genre, batch["genres"], combiner="mean",
-                training=False))
+            feats.append(self._genre_lookup(state, batch, False))
         return state.dense(torch.cat(feats, dim=-1))[:, 0]
 
 

@@ -9,7 +9,7 @@ score the pairs, trained with an in-batch softmax (positives on the
 diagonal). Both tables train with the row-wise ``Adagrad`` (the fused
 optimizer-scatter kernel), the towers with plain SGD.
 
-The sharded (mesh) variant waits for the port of ``parallel/``.
+With ``mesh=`` both tables are ``parallel.ShardedVariable``s.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from torch import nn
 from recommenders_addons_tpu_torch import dynamic_embedding as de
 from recommenders_addons_tpu_torch.models.common import on_device, sgd_
 from recommenders_addons_tpu_torch.nn.mlp import MLP
+from recommenders_addons_tpu_torch.parallel.sharded import ShardedVariable
 from recommenders_addons_tpu_torch.utils.config import resolve_device
 
 
@@ -52,17 +53,15 @@ class TwoTowerModel:
 
     def __init__(self, cfg: TwoTowerConfig = TwoTowerConfig(), mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded two-tower model waits for the port of "
-                "parallel/")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         init = de.initializers.normal(0.05)
 
         def make(name, cap):
-            return de.Variable(name=name, dim=cfg.dim, init_capacity=cap,
-                               initializer=init, device=self.device)
+            var = de.Variable(name=name, dim=cfg.dim, init_capacity=cap,
+                              initializer=init, device=self.device)
+            return ShardedVariable(var, mesh) if mesh is not None else var
 
         self.user = make("tt_user", cfg.user_capacity)
         self.item = make("tt_item", cfg.item_capacity)

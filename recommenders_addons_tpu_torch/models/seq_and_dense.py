@@ -8,7 +8,7 @@ a masked mean, so padding adds nothing, and the apply sends the padding's
 rows to the trash row. The table trains with the row-wise ``Adam`` (the
 fused optimizer-scatter kernel), the MLP with plain SGD.
 
-The sharded (mesh) variant waits for the port of ``parallel/``.
+With ``mesh=`` the table is a ``parallel.ShardedVariable``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from recommenders_addons_tpu_torch import dynamic_embedding as de
 from recommenders_addons_tpu_torch.models.common import on_device, sgd_
 from recommenders_addons_tpu_torch.nn.mlp import MLP
+from recommenders_addons_tpu_torch.parallel.sharded import ShardedVariable
 from recommenders_addons_tpu_torch.utils.config import resolve_device
 
 
@@ -45,16 +46,17 @@ class SeqAndDenseState:
 class SeqAndDenseModel:
     def __init__(self, cfg: SeqAndDenseConfig = SeqAndDenseConfig(),
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded sequence model waits for the port of "
-                "parallel/")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.var = de.Variable(
+        var = de.Variable(
             name="seq_emb", dim=cfg.dim, init_capacity=cfg.capacity,
             initializer=de.initializers.normal(0.05), device=self.device)
-        self.params = self.var
+        if mesh is not None:
+            self.params = ShardedVariable(var, mesh)
+            self.var = self.params.var
+        else:
+            self.params = self.var = var
         self.opt = de.Adam(cfg.lr)
 
     def init(self, seed: int = 0) -> SeqAndDenseState:
@@ -62,7 +64,7 @@ class SeqAndDenseModel:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         dense = MLP((cfg.dim + cfg.num_dense,) + cfg.hidden,
                     device=self.device, generator=gen)
-        return SeqAndDenseState(table=self.var.init(), dense=dense, step=0)
+        return SeqAndDenseState(table=self.params.init(), dense=dense, step=0)
 
     def _pool(self, emb, seq):
         """Masked mean over the sequence axis (``[B, L, D] -> [B, D]``)."""
@@ -74,7 +76,8 @@ class SeqAndDenseModel:
         and the MLP are updated in place."""
 
         def train_step(state: SeqAndDenseState, batch):
-            emb, ctx = self.var.embedding_lookup(state.table, batch["seq"])
+            emb, ctx = self.params.embedding_lookup(state.table,
+                                                   batch["seq"])
             emb = emb.detach().requires_grad_(True)
             params = list(state.dense.parameters())
             x = torch.cat([self._pool(emb, batch["seq"]), batch["dense"]],
@@ -82,8 +85,8 @@ class SeqAndDenseModel:
             pred = state.dense(x)[:, 0]
             loss = ((pred - batch["label"]) ** 2).mean()
             grads = torch.autograd.grad(loss, params + [emb])
-            table = self.var.apply_gradients(state.table, ctx, grads[-1],
-                                             self.opt, step=state.step)
+            table = self.params.apply_gradients(
+                state.table, ctx, grads[-1], self.opt, step=state.step)
             sgd_(params, grads[:-1], 0.02)
             return (SeqAndDenseState(table=table, dense=state.dense,
                                      step=state.step + 1),
@@ -93,7 +96,7 @@ class SeqAndDenseModel:
 
     @torch.no_grad()
     def predict(self, state: SeqAndDenseState, batch):
-        emb = self.var.lookup(state.table, batch["seq"])
+        emb = self.params.lookup(state.table, batch["seq"])
         x = torch.cat([self._pool(emb, batch["seq"]), batch["dense"]],
                       dim=-1)
         return state.dense(x)[:, 0]

@@ -5,9 +5,11 @@ Each embedding layer is an ``nn.Module`` that holds its ``Variable``; the
 table's storage stays an explicit ``TableState`` that the caller threads
 through ``layer(state, ids, training)`` and
 ``layer.apply_gradients(state, ctx, grads, optimizer)``, as in the JAX
-package. A training call returns the rows and the lookup's context; the
-gradient the apply takes is the one with respect to the looked-up rows
-(``ctx.rows``), as ``Variable.apply_gradients`` takes it.
+package. With ``mesh=`` the table is a ``parallel.ShardedVariable``
+(``layer.params``) over the mesh's shards, and its state a
+``ShardedState``. A training call returns the rows and the lookup's
+context; the gradient the apply takes is the one with respect to the
+looked-up rows (``ctx.rows``), as ``Variable.apply_gradients`` takes it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from recommenders_addons_tpu_torch.ops import hashtable, segment
 from recommenders_addons_tpu_torch.ops import sparse as sparse_ops
 from recommenders_addons_tpu_torch.ops.variable import EvictStrategy, Variable
+from recommenders_addons_tpu_torch.parallel.sharded import ShardedVariable
 from recommenders_addons_tpu_torch.utils.config import resolve_device
 
 
@@ -36,21 +39,22 @@ class Embedding(nn.Module):
                  bp_v2: bool = False, mesh=None, mesh_axis: str = "ep",
                  capacity_factor: float = 2.0, device=None, **kwargs):
         super().__init__()
-        del mesh_axis, capacity_factor, kwargs
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded embedding layer waits for the port of "
-                "parallel/")
+        del kwargs
         self.embedding_size = embedding_size
         self.combiner = combiner
         self.name = name
-        self.var = Variable(
+        var = Variable(
             name=name, key_dtype=key_dtype, value_dtype=value_dtype,
             dim=embedding_size, init_capacity=init_capacity,
             initializer=initializer, bp_v2=bp_v2,
             evict_strategy=evict_strategy or EvictStrategy.LRU,
             device=device)
-        self.params = self.var
+        if mesh is not None:
+            self.params = ShardedVariable(var, mesh, axis=mesh_axis,
+                                          capacity_factor=capacity_factor)
+            self.var = self.params.var
+        else:
+            self.params = self.var = var
 
     @property
     def dim(self) -> int:
@@ -81,22 +85,24 @@ class Embedding(nn.Module):
         cfg["value_dtype"] = hashtable.torch_dtype(cfg["value_dtype"])
         return cls(mesh=mesh, device=device, **cfg)
 
-    def init_state(self) -> hashtable.TableState:
-        return self.var.init()
+    def init_state(self):
+        return self.params.init()
 
     def forward(self, state, ids, training: bool = True):
         if isinstance(ids, sparse_ops.RaggedIds):
             # ragged in, ragged out, keeping the row splits
-            return sparse_ops.embedding_lookup_ragged(self.var, state, ids,
-                                                      training=training)
+            return sparse_ops.embedding_lookup_ragged(
+                self.var, state, ids, training=training,
+                sharded=self.params if self.params is not self.var
+                else None)
         if training:
-            return self.var.embedding_lookup(state, ids)
-        return self.var.lookup(state, ids)
+            return self.params.embedding_lookup(state, ids)
+        return self.params.lookup(state, ids)
 
     def apply_gradients(self, state, ctx, grads, optimizer, step=0,
                         epoch=0):
-        return self.var.apply_gradients(state, ctx, grads, optimizer,
-                                        step=step, epoch=epoch)
+        return self.params.apply_gradients(state, ctx, grads, optimizer,
+                                           step=step, epoch=epoch)
 
 
 BasicEmbedding = Embedding  # the reference's alias
@@ -163,9 +169,9 @@ class FieldWiseEmbedding(Embedding):
 
 
 class AllToAllEmbedding(Embedding):
-    """The reference's ``HvdAllToAllEmbedding``: a mesh-sharded layer.
-    ``mesh`` is required; with one, it waits for the port of
-    ``parallel/``."""
+    """The reference's ``HvdAllToAllEmbedding``: a mesh-sharded layer, the
+    Horovod process group replaced by a mesh (``mesh`` is required; a
+    ``parallel.GroupMesh`` for one shard a process)."""
 
     def __init__(self, embedding_size, mesh=None, **kwargs):
         if mesh is None:

@@ -136,6 +136,26 @@ def shard_of(keys: torch.Tensor, num_shards: int) -> torch.Tensor:
     return (hi % num_shards).to(torch.int32)
 
 
+def default_partition_fn(keys: torch.Tensor, shard_num: int) -> torch.Tensor:
+    """The reference's name for :func:`shard_of`."""
+    return shard_of(keys, shard_num)
+
+
+def shard_of_np(keys: np.ndarray, num_shards: int) -> np.ndarray:
+    """:func:`shard_of` of host (numpy) keys, bit for bit the JAX
+    package's ``shard_of_np``: the checkpoint restore partitions saved
+    keys by owner with it before any copy to a device. Unsigned keys are
+    mixed as the signed keys of the same bits."""
+    keys = np.asarray(keys)
+    signed = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
+    if keys.dtype in signed:
+        keys = keys.view(signed[keys.dtype])
+    if keys.dtype not in (np.int64, np.int32):
+        raise ValueError(f"unsupported key dtype {keys.dtype}")
+    return shard_of(torch.from_numpy(np.ascontiguousarray(keys)),
+                    num_shards).numpy()
+
+
 _FNV_OFFSET = np.uint64(0xCBF29CE484222325)
 _FNV_PRIME = np.uint64(0x100000001B3)
 _GOLDEN = np.uint64(0x9E3779B97F4A7C15)

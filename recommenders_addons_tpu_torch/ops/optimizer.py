@@ -228,7 +228,11 @@ def resolve_for(opt, var) -> SparseOptimizer:
 
 def create_slots(var, state: hashtable.TableState,
                  opt) -> hashtable.TableState:
-    """Ensure the optimizer's slot columns exist."""
+    """Ensure the optimizer's slot columns exist (on every shard of a
+    sharded table's state)."""
+    if hasattr(state, "shards"):
+        return state.replace(create_slots(var, st, opt)
+                             for st in state.shards)
     for name, fill in resolve_for(opt, var).slot_specs().items():
         state = hashtable.with_slot(state, name, fill)
     return state

@@ -15,7 +15,9 @@ All three normalize to ``(flat_ids, segment_ids, weights)`` and share one
 combiner. A training lookup returns a :class:`SparseLookupContext`, whose
 :meth:`~SparseLookupContext.row_gradient` takes the gradient of the
 COMBINED output back to one gradient per looked-up id, computed from what
-the context stores (no autograd graph is kept).
+the context stores (no autograd graph is kept). Each lookup takes
+``sharded=`` (a ``parallel.ShardedVariable`` of ``var``) to route its
+rows through the shards; ``apply_sparse_gradients`` then takes it too.
 """
 
 from __future__ import annotations
@@ -128,15 +130,13 @@ def embedding_lookup_ragged(var: Variable, state, ragged_ids: RaggedIds, *,
     splits. Returns ``(RaggedValues, ctx)`` when training (pass the
     gradient of ``out.values`` to ``apply_gradients``), else the
     ``RaggedValues``. Padding entries give zero rows."""
-    if sharded is not None:
-        raise NotImplementedError(
-            "sharded lookups wait for the port of parallel/")
+    lookup_obj = sharded if sharded is not None else var
     valid = ragged_ids.valid_mask()
     flat = torch.where(valid, ragged_ids.values, var.empty_key)
     if training:
-        emb, ctx = var.embedding_lookup(state, flat)
+        emb, ctx = lookup_obj.embedding_lookup(state, flat)
     else:
-        emb = var.lookup(state, flat)
+        emb = lookup_obj.lookup(state, flat)
     emb = torch.where(valid[:, None], emb, 0)
     out = RaggedValues(emb, ragged_ids.row_splits)
     return (out, ctx) if training else out
@@ -265,15 +265,13 @@ def embedding_lookup_sparse(var: Variable, state, sp_ids: IdsLike,
     """Weighted segment-combined lookup (the reference's
     ``embedding_lookup_sparse``). Returns ``(combined [batch_shape +
     (dim,)], SparseLookupContext)`` when training, else ``combined``."""
-    if sharded is not None:
-        raise NotImplementedError(
-            "sharded lookups wait for the port of parallel/")
+    lookup_obj = sharded if sharded is not None else var
     flat, seg, w, nrows, batch_shape = _normalize(var, sp_ids, sp_weights)
     w = w.to(var.value_dtype)
     if training:
-        emb, ctx = var.embedding_lookup(state, flat)
+        emb, ctx = lookup_obj.embedding_lookup(state, flat)
     else:
-        emb = var.lookup(state, flat)
+        emb = lookup_obj.lookup(state, flat)
     combined, denom = segment.combine_with_denominator(
         emb, seg, nrows, weights=w, combiner=combiner)
     combined = combined.reshape(batch_shape + (var.dim,))
@@ -292,9 +290,7 @@ def safe_embedding_lookup_sparse(var: Variable, state, sp_ids: IdsLike,
     which the apply sends to the trash row), and a row left with no entry
     gets ``default_id``'s embedding (its initial row when missing and
     training), or zeros."""
-    if sharded is not None:
-        raise NotImplementedError(
-            "sharded lookups wait for the port of parallel/")
+    lookup_obj = sharded if sharded is not None else var
     flat, seg, w, nrows, batch_shape = _normalize(var, sp_ids, sp_weights)
     invalid = (flat < 0) | (w <= 0)
     w = torch.where(invalid, 0.0, w).to(var.value_dtype)
@@ -303,14 +299,16 @@ def safe_embedding_lookup_sparse(var: Variable, state, sp_ids: IdsLike,
     if default_id is not None:
         dflt_ids = torch.full((nrows,), default_id, dtype=var.key_dtype,
                               device=flat.device)
-        dflt = var.lookup(state, dflt_ids, use_init_for_missing=training)
+        dflt = (sharded.lookup(state, dflt_ids) if sharded is not None
+                else var.lookup(state, dflt_ids,
+                                use_init_for_missing=training))
     else:
         dflt = torch.zeros((nrows, var.dim), dtype=var.value_dtype,
                            device=flat.device)
     if training:
-        emb, ctx = var.embedding_lookup(state, flat)
+        emb, ctx = lookup_obj.embedding_lookup(state, flat)
     else:
-        emb = var.lookup(state, flat)
+        emb = lookup_obj.lookup(state, flat)
     c, denom = segment.combine_with_denominator(emb, seg, nrows, weights=w,
                                                 combiner=combiner)
     combined = torch.where(row_has[:, None], c, dflt).reshape(

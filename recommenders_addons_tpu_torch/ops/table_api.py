@@ -329,26 +329,30 @@ class RedisTableCreator(KVCreator):
 class FileSystemSaver:
     """Reference creator.py:365-516: table payloads go to sidecar KV
     files, which is this package's checkpoint path (train/checkpoint.py);
-    the class records the multi-process layout."""
+    the class records the multi-process layout. ``save`` and ``load`` take
+    a ``Variable`` or a ``parallel.ShardedVariable`` (one file set for
+    each shard this process holds)."""
 
     proc_size: int = 1
     proc_rank: int = 0
     save_path: Optional[str] = None
     buffer_size: int = 4 * 1024 * 1024
 
-    def save(self, var, state, directory=None, global_step=None):
+    def save(self, var_or_sharded, state, directory=None, global_step=None):
         from recommenders_addons_tpu_torch.train import checkpoint as ckpt
 
         return ckpt.save_dynamic_embedding(
-            var, state, directory or self.save_path, global_step=global_step,
+            var_or_sharded, state, directory or self.save_path,
+            global_step=global_step,
             proc_size=self.proc_size, proc_rank=self.proc_rank,
             buffer_size=self.buffer_size)
 
-    def load(self, var, state, directory=None, global_step=None):
+    def load(self, var_or_sharded, state, directory=None, global_step=None):
         from recommenders_addons_tpu_torch.train import checkpoint as ckpt
 
         return ckpt.load_dynamic_embedding(
-            var, state, directory or self.save_path, global_step=global_step,
+            var_or_sharded, state, directory or self.save_path,
+            global_step=global_step,
             buffer_size=self.buffer_size)
 
 

@@ -17,7 +17,9 @@ and ``return_evicted``. The direct KV API: ``accum``, ``import_batch``,
 ``remove`` and ``clear``. The table lifecycle: ``export_keys_and_scores``,
 ``export_chunked``, ``grow``, and the restrict policy (``restrict_policy``,
 ``policy``, ``restrict``; ops/restrict.py); ``kv_creator`` maps a backend
-config (ops/table_api.py) onto the fields. Also the reference's scope
+config (ops/table_api.py) onto the fields. ``num_shards`` (or
+``devices=[...]``) sizes ``spec`` as one shard of a
+``parallel.ShardedVariable``. Also the reference's scope
 store (``get_variable``), ``ModelMode`` and ``GraphKeys``.
 """
 
@@ -134,9 +136,13 @@ class Variable:
     gen_scores_fn: Optional[Callable] = None
     defer_dedup: Optional[bool] = None
     restrict_policy: Any = None  # a policy class, bound lazily (policy)
-    # the reference's signature: one device -> ``device``; more wait for
-    # the port of sharding. ``kv_creator`` contributes backend config
-    # (capacity, evict strategy) through KVCreator.get_variable_kwargs
+    # shards of a ShardedVariable (parallel/sharded.py): ``spec`` is one
+    # shard's, with capacity ``max(capacity // num_shards, bucket_size)``
+    num_shards: int = 1
+    # the reference's signature: ``devices`` maps to ``num_shards`` (and
+    # its first entry to ``device``). ``kv_creator`` contributes backend
+    # config (capacity, evict strategy) through
+    # KVCreator.get_variable_kwargs
     devices: Any = None
     kv_creator: Any = None
 
@@ -160,10 +166,7 @@ class Variable:
         object.__setattr__(self, "key_dtype", hashtable.torch_dtype(kdt))
         object.__setattr__(self, "value_dtype", hashtable.torch_dtype(vdt))
         if self.devices:
-            if len(self.devices) > 1:
-                raise NotImplementedError(
-                    "a Variable over several devices waits for the port of "
-                    "sharding (parallel/)")
+            object.__setattr__(self, "num_shards", len(self.devices))
             if self.device is None:
                 object.__setattr__(self, "device", self.devices[0])
         kc = self.kv_creator
@@ -183,12 +186,20 @@ class Variable:
                    else torch.int32)
         return TableSpec(
             dim=self.dim,
-            capacity=max(cap, self.bucket_size),
+            capacity=max(cap // max(self.num_shards, 1), self.bucket_size),
             key_dtype=self.key_dtype,
             value_dtype=self.value_dtype,
             score_dtype=sdt,
             bucket_size=self.bucket_size,
         )
+
+    @property
+    def shard_capacity(self) -> int:
+        return self.spec.capacity
+
+    @property
+    def total_capacity(self) -> int:
+        return self.spec.capacity * self.num_shards
 
     @property
     def empty_key(self) -> int:

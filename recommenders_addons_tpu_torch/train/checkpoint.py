@@ -21,11 +21,18 @@ finds, whatever ``<n>`` and rank layout, in ``buffer_size``-row chunks
 through ``Variable.import_batch`` (``row_scatter`` on a card): a one-table
 port restores a checkpoint a sharded JAX table wrote.
 
-Waiting for later slices, each raising meanwhile: sharded tables and the
-direct per-shard restore (sharding), a spill tier's own rows
-(``tier=``, ``save_tier`` / ``load_tier``) and the native writer (the host
-store). A checkpoint's ``tier/`` rows are merged into the table when no
-tier is given, as the JAX package does.
+A ``parallel.ShardedVariable`` saves one file set for each shard this
+process holds (``<var>_mht_<i+1>of<S>_rank<r>_size<s>``, each shard's
+rows in its slot order, as the JAX package writes them). Its restore
+takes the direct path when the files' shard count is the table's (each
+file streams into its own shard through ``import_local``, no routing;
+``LAST_RESTORE_USED_DIRECT``), and otherwise partitions the rows by
+owner on the host (``import_host_arrays``).
+
+Waiting for the port of the spill tier and the host store, each raising
+meanwhile: a spill tier's own rows (``tier=``, ``save_tier`` /
+``load_tier``) and the native writer. A checkpoint's ``tier/`` rows are merged into the table
+when no tier is given, as the JAX package does.
 
 ``DECheckpoint`` keeps tables as sidecar files and dense entries
 (``nn.Module``s by their ``state_dict``, tensors, and dicts, lists and
@@ -49,6 +56,7 @@ import torch
 
 from recommenders_addons_tpu_torch.ops import hashtable
 from recommenders_addons_tpu_torch.ops.variable import Variable
+from recommenders_addons_tpu_torch.parallel.sharded import ShardedVariable
 from recommenders_addons_tpu_torch.utils.config import env_config
 
 DE_DIR_NAME = "TFRADynamicEmbedding"
@@ -79,13 +87,17 @@ def _no_tier(tier):
             "ops/spill.py")
 
 
-def _table_of(var):
-    """The Variable of a table entry; a sharded table raises."""
-    if not isinstance(var, Variable):
-        raise NotImplementedError(
-            f"{type(var).__name__}: sharded tables wait for the port of "
-            "parallel/")
-    return var
+_SHARD_RE = re.compile(r"_mht_(\d+)of(\d+)_rank(\d+)_size(\d+)-keys$")
+
+
+def _var_of(table) -> Variable:
+    """The Variable of a table entry (a ``Variable`` or a
+    ``ShardedVariable``)."""
+    if isinstance(table, ShardedVariable):
+        return table.var
+    if not isinstance(table, Variable):
+        raise TypeError(f"not a table: {type(table).__name__}")
+    return table
 
 
 def save_tier(*_a, **_k):
@@ -165,32 +177,48 @@ def _live_rows(var: Variable, state: hashtable.TableState):
     return keys, cols[:, :d], scores, slots
 
 
-def save_dynamic_embedding(var, state: hashtable.TableState,
+def _host_shards(table, state):
+    """``(shard index, shard count, TableState)`` of every shard this
+    process holds (one, ``0 of 1``, for a one-table Variable): each
+    process saves only its own shards."""
+    if not isinstance(table, ShardedVariable):
+        yield 0, 1, state
+        return
+    for sid, st in zip(state.shard_ids, state.shards):
+        yield sid, state.num_shards, st
+
+
+def save_dynamic_embedding(var_or_sharded, state,
                            directory: Optional[str] = None,
                            global_step: Optional[int] = None,
                            proc_size: int = 1, proc_rank: int = 0,
                            buffer_size: Optional[int] = None,
                            tier=None) -> str:
     """Write one table's keys, values, scores and optimizer slots as
-    sidecar files (one shard, ``1of1``) and its ``meta_rank<r>.json``.
+    sidecar files (a set for each shard this process holds, tagged with
+    ``proc_rank`` / ``proc_size``) and its ``meta_rank<r>.json``.
     ``directory=None`` falls back to ``TFRA_SAVED_KV``, ``buffer_size=None``
     to ``TFRA_TPU_CKPT_BUFFER_KEYS``. Returns the table's directory."""
     directory = _resolve_dir(directory)
     buffer_size = _resolve_buffer(buffer_size)
-    var = _table_of(var)
+    var = _var_of(var_or_sharded)
     _no_tier(tier)
     vdir = os.path.join(_de_dir(directory, global_step), var.name)
     os.makedirs(vdir, exist_ok=True)
 
     slot_names = sorted(state.slot_names)
-    keys, values, scores, slots = _live_rows(var, state)
-    prefix = os.path.join(
-        vdir, f"{var.name}_mht_1of1_rank{proc_rank}_size{proc_size}")
-    _dump_rows(prefix + "-keys", keys, buffer_size)
-    _dump_rows(prefix + "-values", values, buffer_size)
-    _dump_rows(prefix + "-scores", scores, buffer_size)
-    for s in slot_names:
-        _dump_rows(prefix + f"-slots.{s}", slots[s], buffer_size)
+    total_live = 0
+    for i, n, st in _host_shards(var_or_sharded, state):
+        keys, values, scores, slots = _live_rows(var, st)
+        total_live += len(keys)
+        prefix = os.path.join(
+            vdir,
+            f"{var.name}_mht_{i + 1}of{n}_rank{proc_rank}_size{proc_size}")
+        _dump_rows(prefix + "-keys", keys, buffer_size)
+        _dump_rows(prefix + "-values", values, buffer_size)
+        _dump_rows(prefix + "-scores", scores, buffer_size)
+        for s in slot_names:
+            _dump_rows(prefix + f"-slots.{s}", slots[s], buffer_size)
 
     meta = {
         "name": var.name,
@@ -200,8 +228,9 @@ def save_dynamic_embedding(var, state: hashtable.TableState,
         "score_dtype": hashtable.dtype_name(var.spec.score_dtype),
         "slot_names": slot_names,
         "slot_inits": dict(state.slot_inits),
-        "num_shards": 1,
-        "live_keys_this_rank": int(len(keys)),
+        "num_shards": (var_or_sharded.num_shards if isinstance(
+            var_or_sharded, ShardedVariable) else 1),
+        "live_keys_this_rank": int(total_live),
         "tier_keys_this_rank": 0,
         "proc_rank": proc_rank,
         "proc_size": proc_size,
@@ -284,7 +313,7 @@ def _iter_shard_chunks(vdir: str, var: Variable, chunk_rows: int):
             r.close()
 
 
-def _ensure_restore_slots(var, state, vdir, slot_names):
+def _ensure_restore_slots(table, state, vdir, slot_names):
     """Add the checkpoint's slot columns (fills from the saved meta)."""
     if not slot_names:
         return state
@@ -292,36 +321,109 @@ def _ensure_restore_slots(var, state, vdir, slot_names):
     for mf in glob.glob(os.path.join(vdir, "meta_rank*.json")):
         with open(mf) as f:
             slot_inits.update(json.load(f).get("slot_inits", {}))
-    for n in slot_names:
-        state = hashtable.with_slot(state, n, float(slot_inits.get(n, 0.0)))
+    specs = {n: float(slot_inits.get(n, 0.0)) for n in slot_names}
+    if isinstance(table, ShardedVariable):
+        return table.ensure_slot_columns(state, specs)
+    for n, fill in specs.items():
+        state = hashtable.with_slot(state, n, fill)
     return state
 
 
-def _import_streamed(var: Variable, state, vdir, buffer_size):
-    """Chunked import of every shard file set under ``vdir``."""
+def _import_streamed(table, state, vdir, buffer_size):
+    """Chunked import of every shard file set under ``vdir``: a sharded
+    table partitions each chunk by owner on the host."""
+    var = _var_of(table)
     for keys, values, scores, slots in _iter_shard_chunks(vdir, var,
                                                           buffer_size):
-        state = var.import_batch(state, keys, values, scores=scores,
-                                 slot_rows=slots or None)
+        if isinstance(table, ShardedVariable):
+            state = table.import_host_arrays(
+                state, keys, values, scores=scores, slot_rows=slots or None,
+                buffer_size=buffer_size)
+        else:
+            state = var.import_batch(state, keys, values, scores=scores,
+                                     slot_rows=slots or None)
     return state
 
 
-def load_dynamic_embedding(var, state: hashtable.TableState,
+def _direct_shard_layout(prefixes, num_shards: int):
+    """Shard index -> file prefix when the saved files are exactly one set
+    for each of ``num_shards`` shards (the restore can then stream each
+    file into its own shard); None when any file deviates."""
+    by_idx = {}
+    for p in prefixes:
+        m = _SHARD_RE.search(p + "-keys")
+        if not m:
+            return None
+        i, n = int(m.group(1)) - 1, int(m.group(2))
+        if n != num_shards or i in by_idx:
+            return None
+        by_idx[i] = p
+    if set(by_idx) != set(range(num_shards)):
+        return None
+    return by_idx
+
+
+# whether the last load_dynamic_embedding took the direct (shard count
+# matched, no re-partitioning) per-shard path
+LAST_RESTORE_USED_DIRECT = False
+
+
+def _import_direct_sharded(sv: ShardedVariable, state, by_idx, slot_names,
+                           chunk_rows: int):
+    """Shard-count-matched restore: each saved shard file streams into
+    its own shard through ``import_local`` (no host re-sort, no routing;
+    every key of file ``i`` has ``shard_of(key, S) == i``, since the file
+    was written from shard ``i``'s rows). Only the shards this process
+    holds read their files."""
+    var = sv.var
+    s, d = sv.num_shards, var.dim
+    sdt = var.spec.score_dtype
+    readers = {i: _ShardReader(by_idx[i], var, slot_names)
+               for i in state.shard_ids}
+    m_chunk = max(1, chunk_rows // s)
+    try:
+        while any(r.remaining for r in readers.values()):
+            m = min(m_chunk, max(r.remaining for r in readers.values()))
+            k_blk = torch.full((s, m), var.empty_key, dtype=var.key_dtype)
+            v_blk = torch.zeros((s, m, d), dtype=var.value_dtype)
+            s_blk = torch.zeros((s, m), dtype=sdt)
+            sl_blk = {nm: torch.zeros((s, m, d), dtype=var.value_dtype)
+                      for nm in slot_names}
+            for i, r in readers.items():
+                k, v, sc, sl = r.read(m)
+                w = len(k)
+                k_blk[i, :w] = k
+                v_blk[i, :w] = v
+                s_blk[i, :w] = sc
+                for nm, c in sl.items():
+                    sl_blk[nm][i, :w] = c
+            state = sv.import_local(state, k_blk, v_blk, scores=s_blk,
+                                    slot_rows=sl_blk or None)
+    finally:
+        for r in readers.values():
+            r.close()
+    return state
+
+
+def load_dynamic_embedding(var_or_sharded, state,
                            directory: Optional[str] = None,
                            global_step: Optional[int] = None,
                            buffer_size: Optional[int] = None,
-                           tier=None) -> hashtable.TableState:
+                           tier=None):
     """Restore a table's rows from sidecar files into ``state``, streamed
     in ``buffer_size``-row chunks. Elastic: every saved shard file set is
-    read, whatever the saved shard count and rank layout. A checkpoint's
-    spill-tier rows (``tier/``) are merged into the table, with the JAX
-    package's warning that rows beyond its capacity are dropped."""
+    read, whatever the saved shard count and rank layout; a sharded table
+    whose shard count matches the files' takes the direct per-shard path.
+    A checkpoint's spill-tier rows (``tier/``) are merged into the table,
+    with the JAX package's warning that rows beyond its capacity are
+    dropped."""
+    global LAST_RESTORE_USED_DIRECT
     directory = _resolve_dir(directory)
     buffer_size = _resolve_buffer(buffer_size)
-    var = _table_of(var)
+    var = _var_of(var_or_sharded)
     _no_tier(tier)
     vdir = os.path.join(_de_dir(directory, global_step), var.name)
-    _, slot_names, rows_per = _scan_shard_files(vdir, var)
+    prefixes, slot_names, rows_per = _scan_shard_files(vdir, var)
 
     merge_tier = False
     tdir = os.path.join(vdir, "tier")
@@ -336,11 +438,21 @@ def load_dynamic_embedding(var, state: hashtable.TableState,
             merge_tier = True
             slot_names = sorted(set(slot_names) | set(t_slots))
 
-    state = _ensure_restore_slots(var, state, vdir, slot_names)
+    state = _ensure_restore_slots(var_or_sharded, state, vdir, slot_names)
+    LAST_RESTORE_USED_DIRECT = False
     if sum(rows_per) > 0:
-        state = _import_streamed(var, state, vdir, buffer_size)
+        by_idx = None
+        if isinstance(var_or_sharded, ShardedVariable):
+            by_idx = _direct_shard_layout(prefixes,
+                                          var_or_sharded.num_shards)
+        if by_idx is not None:
+            state = _import_direct_sharded(var_or_sharded, state, by_idx,
+                                           slot_names, buffer_size)
+            LAST_RESTORE_USED_DIRECT = True
+        else:
+            state = _import_streamed(var_or_sharded, state, vdir, buffer_size)
     if merge_tier:
-        state = _import_streamed(var, state, tdir, buffer_size)
+        state = _import_streamed(var_or_sharded, state, tdir, buffer_size)
     return state
 
 
@@ -430,9 +542,10 @@ class DECheckpoint:
                   step=100)
         restored = ckpt.restore(dir, state={...})   # the same keys
 
-    A Variable entry is a table; a ``(Variable, tier)`` pair a table with
-    its spill tier (which waits for the port of ops/spill.py); anything
-    else a dense entry, whose object is unused (the state holds it)."""
+    A Variable or ShardedVariable entry is a table; a ``(table, tier)``
+    pair a table with its spill tier (which waits for the port of
+    ops/spill.py); anything else a dense entry, whose object is unused
+    (the state holds it)."""
 
     def __init__(self, **objects):
         self._objects = objects
@@ -440,10 +553,10 @@ class DECheckpoint:
     @staticmethod
     def _split_entry(v):
         """``(table or None, tier or None)`` of a checkpoint entry."""
-        if isinstance(v, Variable):
+        if isinstance(v, (Variable, ShardedVariable)):
             return v, None
         if (isinstance(v, tuple) and len(v) == 2
-                and isinstance(v[0], Variable)):
+                and isinstance(v[0], (Variable, ShardedVariable))):
             return v[0], v[1]
         return None, None
 

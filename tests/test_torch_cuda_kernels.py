@@ -769,3 +769,129 @@ def test_lifecycle_on_card_matches_cpu(cuda, value_dtype, tmp_path):
     for a, b in zip(got, want):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+def _sharded_run(where, tmp_path):
+    """A 4-shard Adagrad table on ``where`` (a mesh of 4 logical shards of
+    one device): 3 lookup + apply steps, the second a hot-key batch (one
+    key over more than K positions of block 0), then an inference lookup
+    and a save. Returns the contexts' planes, the state and the lookup."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch import parallel
+    from recommenders_addons_tpu_torch.train import checkpoint as ckpt
+
+    var = de.Variable(name="shc", dim=16, init_capacity=1 << 12,
+                      initializer=de.initializers.normal(0.1), device=where)
+    sv = parallel.ShardedVariable(var, parallel.create_mesh(
+        devices=[where] * 4))
+    opt = de.Adagrad(0.1)
+    st = sv.create_slots(sv.init(), opt)
+    rng = np.random.default_rng(0)
+    planes = []
+    for t in range(3):
+        ids = rng.integers(1, 3000, size=512).astype(np.int64)
+        if t == 1:
+            ids[:128] = 77  # block 0: one key 128 times, K = 64
+        g = rng.normal(size=(512, 16)).astype(np.float32)
+        _, ctx = sv.embedding_lookup(st, torch.from_numpy(ids).to(where),
+                                     step=t)
+        assert ctx.deduped == (t == 1)
+        planes.append([x.cpu() for x in ctx.send_pos + ctx.routed]
+                      + [getattr(o, f).cpu() for o in ctx.octx
+                         for f in ("unique_keys", "found", "inserted")])
+        st = sv.apply_gradients(st, ctx, torch.from_numpy(g).to(where), opt,
+                                step=t)
+    probe = torch.arange(1, 3100).to(where)
+    ckpt.save_dynamic_embedding(sv, st, str(tmp_path / str(where)))
+    return sv, planes, st, sv.lookup(st, probe).cpu()
+
+
+@pytest.mark.gpu
+def test_sharded_route_on_card_matches_cpu(cuda, tmp_path):
+    """The sharded route (4 logical shards of the card) against the same
+    calls on 4 CPU shards: routing and owner planes and every shard's key
+    and score planes bit-exact, rows within rtol 1e-5 / atol 1e-6, the
+    shard files' keys and scores byte-identical and their values and slots
+    within the same tolerance; the card run launches row_gather and
+    fused_update_scatter, its direct restore row_scatter."""
+    import filecmp
+    import os
+
+    from recommenders_addons_tpu_torch.train import checkpoint as ckpt
+
+    before = {k.name: k.launches for k in cuda_ops.KERNELS}
+    sv, gp, gst, glook = _sharded_run(cuda, tmp_path)
+    for name in ("row_gather", "fused_update_scatter"):
+        assert getattr(cuda_ops, name.upper()).launches > before[name]
+    _, cp, cst, clook = _sharded_run("cpu", tmp_path)
+    for a, b in zip(gp, cp):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    for g, c in zip(gst.shards, cst.shards):
+        for f in ("key_lo", "key_hi", "scores"):
+            assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+        torch.testing.assert_close(g.rows_logical.cpu(), c.rows_logical,
+                                   rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(glook, clook, rtol=1e-5, atol=1e-6)
+    sub = os.path.join(ckpt.DE_DIR_NAME, "shc")
+    names = sorted(os.listdir(tmp_path / "cpu" / sub))
+    assert sum("of4_" in n for n in names) == 16
+    exact = [n for n in names if n.endswith(("-keys", "-scores"))]
+    _, diff, err = filecmp.cmpfiles(tmp_path / str(cuda) / sub,
+                                    tmp_path / "cpu" / sub, exact,
+                                    shallow=False)
+    assert len(exact) == 8 and not diff and not err
+    for n in names:
+        if n.endswith(("-values", "-slots.accumulator")):
+            np.testing.assert_allclose(
+                np.fromfile(tmp_path / str(cuda) / sub / n, np.float32),
+                np.fromfile(tmp_path / "cpu" / sub / n, np.float32),
+                rtol=1e-5, atol=1e-6)
+    before = cuda_ops.ROW_SCATTER.launches
+    back = ckpt.load_dynamic_embedding(sv, sv.init(),
+                                       str(tmp_path / str(cuda)))
+    assert ckpt.LAST_RESTORE_USED_DIRECT
+    assert cuda_ops.ROW_SCATTER.launches >= before + 4
+    assert torch.equal(sv.lookup(back, torch.arange(1, 3100).to(cuda)).cpu(),
+                       glook)
+
+
+@pytest.mark.gpu
+def test_group_mesh_world_of_one_on_card(cuda, tmp_path):
+    """The process-group exchange on NCCL, a world of one rank (a
+    FileStore; no network): a one-shard table trains 3 steps like one
+    unsharded table on the card (planes bit-exact, rows within rtol 1e-5 /
+    atol 1e-6)."""
+    import torch.distributed as dist
+
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch import parallel
+    from recommenders_addons_tpu_torch.parallel import multihost
+
+    assert multihost.initialize(f"file://{tmp_path}/store", world_size=1,
+                                rank=0, backend="nccl")
+    try:
+        mesh = multihost.global_mesh(device=cuda)
+        assert isinstance(mesh, parallel.GroupMesh)
+        var = de.Variable(name="g1", dim=16, init_capacity=1 << 12,
+                          initializer=de.initializers.normal(0.1))
+        sv = parallel.ShardedVariable(var, mesh)
+        opt = de.Adagrad(0.1)
+        st = sv.create_slots(sv.init(), opt)
+        one = de.create_slots(var, var.init(), opt)
+        rng = np.random.default_rng(1)
+        for t in range(3):
+            ids = torch.from_numpy(rng.integers(1, 3000, size=512)).to(cuda)
+            g = torch.from_numpy(rng.normal(size=(512, 16)).astype(
+                np.float32)).to(cuda)
+            _, ctx = sv.embedding_lookup(st, ids, step=t)
+            st = sv.apply_gradients(st, ctx, g, opt, step=t)
+            _, c1 = var.embedding_lookup(one, ids, step=t)
+            one = var.apply_gradients(one, c1, g, opt, step=t)
+        (shard,) = st.shards
+        for f in ("key_lo", "key_hi", "scores"):
+            assert torch.equal(getattr(shard, f), getattr(one, f)), f
+        torch.testing.assert_close(shard.rows_logical, one.rows_logical,
+                                   rtol=1e-5, atol=1e-6)
+    finally:
+        dist.destroy_process_group()

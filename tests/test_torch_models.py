@@ -262,7 +262,12 @@ def test_models_raise_without_a_card_or_with_a_mesh():
                  lambda: tnl.LayerNormalization(dim=8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+    # a mesh that is not a parallel mesh raises; a real one shards the
+    # tables (tests/test_torch_sharded.py trains them)
+    from recommenders_addons_tpu_torch import parallel as tpar
+
     for cls in (tdcn.DCN, tml.MovieLensModel, trt.TwoTowerModel,
                 tsq.SeqAndDenseModel):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             cls(mesh=object(), device="cpu")
+        cls(mesh=tpar.create_mesh(devices=["cpu"] * 2), device="cpu")

@@ -304,8 +304,12 @@ def test_warm_start_keras_models_callbacks_and_saver(tmp_path):
     bc = tcallbacks.DEHvdBroadcastGlobalVariablesCallback(
         local_variables="['stats']")
     assert bc({"t": st}) == {"t": st} and bc.broadcast_done
-    with pytest.raises(NotImplementedError):
-        bc({"t": st}, mesh=object())
+    # one process holds the one copy: an in-process mesh broadcasts
+    # nothing (tests/test_torch_multiprocess.py broadcasts over gloo)
+    from recommenders_addons_tpu_torch import parallel as tpar
+
+    assert bc({"t": st}, mesh=tpar.create_mesh(devices=["cpu"] * 2)) == {
+        "t": st}
 
     saver = DEHvdSaver(rank=0, size=1, t=tv)
     s = str(tmp_path / "saver")

@@ -523,7 +523,7 @@ def test_embedding_layer_trains():
                                rtol=0)
     with pytest.raises(ValueError, match="requires a mesh"):
         tkl.AllToAllEmbedding(4, name="kl_a2a")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tkl.HvdAllToAllEmbedding(4, mesh=object(), name="kl_a2a")
 
 

@@ -355,8 +355,9 @@ def test_kv_creator_mapping_matches():
     assert r.create(dim=DIM, device="cpu", config=r.config).name == "table"
     assert ttable.RedisTable(dim=DIM, device="cpu", init_size=64,
                              config=ttable.RedisTableConfig()).name == "test"
-    with pytest.raises(NotImplementedError):
-        tde.Variable(dim=DIM, devices=["cpu", "cpu"])
+    two = tde.Variable(dim=DIM, devices=["cpu", "cpu"])
+    assert two.num_shards == 2 and two.total_capacity == jde.Variable(
+        dim=DIM, devices=["a", "b"]).total_capacity
     assert tde.Variable(dim=DIM, devices=["cpu"]).device == "cpu"
 
 
