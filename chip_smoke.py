@@ -11,8 +11,10 @@ sparse lookup API (DCN at full width, MovieLens, two-tower retrieval,
 seq-and-dense) and the sparse API itself, runs the table lifecycle
 (checkpoint round trip, restrict policies, grow, chunked export), the
 sharded table (parallel/: the DLRM on 4 logical shards of the card, the
-NCCL process-group exchange, sharded checkpoints) and the kernel tools,
-checking each result against a reference.
+NCCL process-group exchange, sharded checkpoints), the spill tier
+(DLRM's table under a HybridTable with twice its capacity in keys, its
+host store, checkpoints, tiered serving and the networked shared tier)
+and the kernel tools, checking each result against a reference.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -142,7 +144,39 @@ Phases (any failure exits non-zero):
    into 4 shards (the direct path) and into one table, every key's rows,
    slots and score bit-equal (the ``sharded_checkpoint`` path: row_gather
    and row_scatter must launch).
-9. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
+9. The spill tier (ops/spill.py, native/, serving/kv.py). The native
+   host store is built with g++ in a thread beside the nvcc builds (its
+   seconds reported). DLRM's table, Variable(dim=64, init_capacity=4Mi,
+   LRU, float32) with its Adagrad slot created first (rows of 512 B),
+   under HybridTable(0.95, 0.80), with 8Mi distinct keys from the seed.
+   (a) Every key through HybridTable.upsert in blocks of 65,536 (rows a
+   function of the key and the seed): total_keys is 8Mi, the card's and
+   the tier's key sets are disjoint and together the keys, every row is
+   its key's value bit for bit; ms, rows absorbed, host GB/s. (b) 20
+   steps of 65,536 zipf(1.2) ids over a seeded permutation of the keys:
+   promote, demote_to_watermark, embedding_lookup and the tier's Adagrad
+   apply, each step's promote, demote and lookup+apply ms, rows moved,
+   batch keys still missing after the watermark, host syncs, GB/s; the
+   first step's demote row gather and promote row scatter held against
+   their plain versions (bit-exact); the time of promote's Python loop at
+   a batch's unique keys. (c) The same sequence at dim 8, 4,096 slots
+   and 16Ki keys on the card and on the CPU: key planes, scores, the
+   stores' keys and scores and the SpillStats bit-exact, trained rows
+   within rtol 1e-5 / atol 1e-6 (the grad combine's f64 prefix sums run
+   in another order on the card). (d) save_dynamic_embedding(...,
+   tier=hy) and a cold restore into a fresh HybridTable: every key of
+   each tier bit-equal (rows, score, slot); save and restore ms and GB
+   of each tier. (e) lookup_through of 65,536 ids (card hits, tier hits,
+   unknown keys) and EmbeddingServer(tiers=) over freeze(float32), 8
+   checked and 16 timed requests of 256 x 26 ids, each bit-equal to a
+   numpy reference built from the two tiers' exports. (f) A
+   ShardedSpillTier on 4 logical shards of the card: (a)'s prefill and
+   5 steps; and a SpillTier over a RemoteKVStore on an in-process
+   HostKVServer against one over a local store, 65,536 rows demoted and
+   promoted, planes and stores bit-equal, us per row. Launch counts are
+   reset before each part; row_gather and row_scatter must launch on
+   each, fused_update_scatter on (b) and the sharded (f).
+10. The row-copy micro-benchmark (recommenders_addons_tpu_torch/tools/
    dma_bench.py) at its two full-width shapes, 2Mi rows of 2 chunks (its
    default) and 4Mi rows of 1: every variant of its two lists, a
    predicated gather (row and premultiplied predicate) and a predicated
@@ -156,7 +190,7 @@ Phases (any failure exits non-zero):
    index_copy_); then its four kernels' plain versions timed, and the two
    gathers' ms over their bound and over index_select, with a
    torch.profiler trace of 10 calls each (device busy share, kernel ms).
-10. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
+11. The two probes (recommenders_addons_tpu_torch/tools/ab_kernel_cost.py
    and ab_radix_plan.py). ab_fused against its plain version at the
    fused-apply probe's full width (2Mi rows of 1 KiB, N = 66,573 unique
    indices, v >= 0), every mode x sub x nbuf: identity and rawcopy
@@ -176,15 +210,15 @@ Phases (any failure exits non-zero):
 
 Each main path (serving, DLRM training, table step, the five parts of
 the training surface, the DCN, the sparse API, the learning bars, the
-lifecycle, sharded training, the sharded checkpoint, dma_bench,
-ab_kernel_cost, ab_radix_plan) is
+lifecycle, sharded training, the sharded checkpoint, the six parts of
+the spill phase, dma_bench, ab_kernel_cost, ab_radix_plan) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
 
 Output: the card's name and power limit on a line of its own,
 ``{"serving": ...}``, ``{"training": ...}``,
 ``{"training_surface": ...}``, ``{"models": ...}``, ``{"lifecycle": ...}``,
-``{"sharded": ...}``, ``{"dma_bench": ...}``,
+``{"sharded": ...}``, ``{"spill": ...}``, ``{"dma_bench": ...}``,
 ``{"ab_tools": ...}``, ``{"kernels": [...]}`` and last
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -257,6 +291,17 @@ SPARSE_ROWS, SPARSE_LEN, SPARSE_CAP = 8192, 8, 1 << 18
 LIFE_DLRM_STEPS, LIFE_EXTRA_STEPS, LIFE_LOSS_RTOL = 20, 3, 1e-6
 LIFE_CAP, LIFE_N, LIFE_RESERVED = 1 << 21, 3 << 19, 1 << 20
 LIFE_GROW, LIFE_SPLIT, LIFE_LOWEST_K = 1 << 22, 1 << 20, 100_000
+# the spill phase: DLRM's table under a HybridTable with twice its
+# capacity in keys, upserted in blocks; training batches of zipf ids;
+# the sharded tier's steps; serving requests checked and timed; the
+# narrow card-against-CPU run (dim, slots, keys); the networked store's
+# table and its demoted rows
+SPILL_KEYS, SPILL_BLOCK, SPILL_BATCH = 1 << 23, 65536, 65536
+SPILL_STEPS, SPILL_SHARDED_STEPS = 20, 5
+SPILL_HIGH, SPILL_LOW = 0.95, 0.80
+SPILL_REQUESTS, SPILL_TIMED = 8, 16
+SPILL_NARROW = (8, 1 << 12, 1 << 14)
+SPILL_REMOTE_CAP, SPILL_REMOTE_N = 1 << 18, 65536
 
 _F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per updated column of Adagrad (ops/optimizer.py:
@@ -2128,6 +2173,645 @@ def sharded_phase(torch, cuda_ops, dev, seed):
                          "sharded_checkpoint": ckpt["launches"]}}
 
 
+def _spill_keys(seed, n) -> np.ndarray:
+    """``n`` distinct non-negative int64 keys from the seed: a seeded
+    offset times an odd constant, mod 2**62 (a bijection)."""
+    off = np.random.default_rng(seed).integers(0, 1 << 40)
+    with np.errstate(over="ignore"):
+        k = (np.arange(n, dtype=np.int64) + off) * np.int64(
+            -7046029254386353131)  # 0x9E3779B97F4A7C15 as int64
+    return k & ((1 << 62) - 1)
+
+
+def _spill_values(torch, keys, dim, seed):
+    """Seeded rows as a function of each key (so any row can be checked
+    again from its key alone): 24 bits of ``key * K + column * M + seed``,
+    scaled to [-0.5, 0.5)."""
+    col = torch.arange(dim, dtype=torch.int64, device=keys.device)
+    h = keys[:, None] * -7046029254386353131 + col * 0x5851F42D4C957F2D + (
+        seed * 0x2545F491)
+    return ((h >> 40) & 0xFFFFFF).to(torch.float32) / (1 << 24) - 0.5
+
+
+def _store_sorted(store):
+    """A host store's export sorted by key: keys, scores and the value
+    and slot columns side by side, as numpy."""
+    keys, vals, scores, slots = store.export_all()
+    order = np.argsort(keys, kind="stable")
+    cols = np.concatenate([vals] + [slots[n] for n in sorted(slots)],
+                          axis=1)
+    return {"keys": keys[order], "scores": scores[order],
+            "rows": cols[order].view(np.int32)}
+
+
+def _same_store(a, b, what):
+    for k in a:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: the stores' {k} differ")
+
+
+def _hbm_keys(torch, var, st) -> np.ndarray:
+    from recommenders_addons_tpu_torch.ops import hashtable
+
+    parts = []
+    for part in getattr(st, "shards", [st]):
+        mask = hashtable.occupancy_mask(var.spec, part)
+        parts.append(part.keys[mask].cpu().numpy())
+    return np.concatenate(parts)
+
+
+def _tiers_cover(torch, var, hy, keys, what):
+    """The card's and the tier's key sets are disjoint and together are
+    exactly ``keys``; returns (card keys, tier keys)."""
+    on_card = _hbm_keys(torch, var, hy.state)
+    in_tier = hy.tier.store.export_all()[0]
+    both = np.sort(np.concatenate([on_card, in_tier]))
+    if not np.array_equal(both, np.sort(keys)):
+        raise AssertionError(
+            f"{what}: {len(on_card)} card + {len(in_tier)} tier keys are "
+            f"not the {len(keys)} keys, once each")
+    return on_card, in_tier
+
+
+def _row_bytes(var, n_slots=1) -> int:
+    """Bytes of one row moved between the tiers: key, score, value and
+    slot columns."""
+    return 8 + 4 + var.dim * (1 + n_slots) * 4
+
+
+def _spill_prefill(torch, var, hy, keys, seed, dev):
+    """(a) Every key through HybridTable.upsert in SPILL_BLOCK blocks
+    (LRU step = the block): bucket eviction absorbs the displaced rows
+    into the tier. Checks total_keys, the tiers' cover and every row (of
+    every shard) against its key's seeded value, bit for bit."""
+    from recommenders_addons_tpu_torch.ops import hashtable
+
+    n = len(keys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b, off in enumerate(range(0, n, SPILL_BLOCK)):
+        k = torch.from_numpy(keys[off:off + SPILL_BLOCK]).to(dev)
+        hy.upsert(k, _spill_values(torch, k, var.dim, seed), step=b)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    total = hy.tier.total_keys(hy.state)
+    if total != n:
+        raise AssertionError(f"prefill: total_keys {total}, not {n}")
+    on_card, in_tier = _tiers_cover(torch, var, hy, keys, "prefill")
+    for st in getattr(hy.state, "shards", [hy.state]):
+        mask = hashtable.occupancy_mask(var.spec, st)
+        if not torch.equal(st.values[mask], _spill_values(
+                torch, st.keys[mask], var.dim, seed)):
+            raise AssertionError("prefill: a card row is not its upserted "
+                                 "value")
+    fill = dict(hy.state.slot_inits)["accumulator"]
+    tk, tv, _, tsl = hy.tier.store.export_all()
+    tk = torch.from_numpy(tk).to(dev)
+    if not torch.equal(torch.from_numpy(tv).to(dev),
+                       _spill_values(torch, tk, var.dim, seed)):
+        raise AssertionError("prefill: a tier row is not its upserted value")
+    if not bool((torch.from_numpy(tsl["accumulator"]) == fill).all()):
+        raise AssertionError("prefill: a tier row's accumulator is not its "
+                             "fresh fill")
+    absorbed = hy.tier.stats.demoted
+    return {"keys": n, "blocks": -(-n // SPILL_BLOCK), "ms": ms,
+            "card_keys": len(on_card), "tier_keys": len(in_tier),
+            "rows_absorbed": absorbed,
+            "host_gb_per_s": absorbed * _row_bytes(var) / (ms * 1e6)}
+
+
+def _zipf_ids(rng, keys, perm, n):
+    r = np.minimum(rng.zipf(1.2, size=n) - 1, len(keys) - 1)
+    return keys[perm[r]]
+
+
+def _spill_step(torch, de, var, hy, opt, ids, grads, step, dev,
+                record=None):
+    """One training step through the tier: promote, the watermark (what
+    ``prepare_batch`` does), the batch keys still missing, then
+    ``embedding_lookup`` and the tier's apply; timed part by part.
+    ``record`` (a dict) receives the operands of the promote's row
+    scatter and of the demote's row gather."""
+    from recommenders_addons_tpu_torch.ops import hashtable
+    from recommenders_addons_tpu_torch.tools import fused_sweep as fs
+
+    s0 = dataclasses.replace(hy.tier.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def promote():
+        hy.state = hy.tier.promote(hy.state, ids)
+
+    def demote():
+        hy.state = hy.tier.demote_to_watermark(hy.state, hy.high, hy.low)
+
+    def prepare():
+        if record is None:
+            promote()
+        else:
+            record["scatter"] = fs.record_calls(
+                promote, "scatter_rows_set_2d", limit=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s_mid = dataclasses.replace(hy.tier.stats)
+        if record is None:
+            demote()
+        else:
+            record["gather"] = fs.record_calls(demote, "gather_rows_2d",
+                                               limit=1)
+        torch.cuda.synchronize()
+        return t1, time.perf_counter(), s_mid
+
+    (t1, t2, sm), syncs = _count_syncs(torch, prepare)
+    s1 = dataclasses.replace(hy.tier.stats)
+    uniq = torch.unique(torch.from_numpy(ids).to(dev))
+    svar = getattr(hy.tier, "svar", None)
+    if svar is not None:
+        missing = int((~svar.contains(hy.state, uniq)).sum())
+    else:
+        missing = int((~hashtable.find(var.spec, hy.state, uniq)[1]).sum())
+    ids_dev = torch.from_numpy(ids).to(dev)
+    owner = svar or var
+
+    def train():
+        emb, ctx = owner.embedding_lookup(hy.state, ids_dev, step=step)
+        hy.state = hy.tier.apply_gradients(hy.state, ctx, grads, opt,
+                                           step=step)
+        torch.cuda.synchronize()
+
+    t3 = time.perf_counter()
+    _, syncs2 = _count_syncs(torch, train)
+    t4 = time.perf_counter()
+    promoted = sm.promoted - s0.promoted
+    demoted = s1.demoted - sm.demoted
+    rb = _row_bytes(var)
+    promote_ms, demote_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    return {"promote_ms": promote_ms, "demote_ms": demote_ms,
+            "lookup_apply_ms": (t4 - t3) * 1e3,
+            "ms": (t2 - t0 + t4 - t3) * 1e3,
+            "promoted": promoted, "demoted": demoted,
+            "absorbed_by_promote": sm.demoted - s0.demoted,
+            "absorbed_by_apply": hy.tier.stats.demoted - s1.demoted,
+            "missing_after_prepare": missing,
+            "host_syncs": syncs + syncs2,
+            "promote_gb_per_s": promoted * rb / (promote_ms * 1e6),
+            "demote_gb_per_s": (demoted * rb / (demote_ms * 1e6)
+                                if demoted else None)}
+
+
+def _promote_loop_ms(hit_keys) -> float:
+    """The time of promote's kept Python loop (``placed = [k for k in
+    hit_keys.tolist() if k not in not_placed]``) over ``hit_keys``."""
+    t0 = time.perf_counter()
+    not_placed: set = set()
+    np.asarray([k for k in hit_keys.tolist() if k not in not_placed],
+               np.int64)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _spill_training(torch, cuda_ops, de, var, hy, opt, keys, seed, dev):
+    """(b) SPILL_STEPS steps of SPILL_BATCH zipf(1.2) ids over a seeded
+    permutation of the keys through the tier. The first step's demote
+    row gather and promote import scatter are recorded (copies of the
+    table: its time includes them) and held against their plain
+    versions after the steps (bit-exact)."""
+    rng = np.random.default_rng(seed + 1)
+    perm = rng.permutation(len(keys))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batches = [_zipf_ids(rng, keys, perm, SPILL_BATCH)
+               for _ in range(SPILL_STEPS)]
+    grads = [torch.randn((SPILL_BATCH, var.dim), device=dev, generator=gen)
+             for _ in range(SPILL_STEPS)]
+    steps, rec = [], {}
+    cuda_ops.reset_launches()
+    for i, ids in enumerate(batches):
+        steps.append(_spill_step(torch, de, var, hy, opt, ids, grads[i],
+                                 i + 1, dev, rec if i == 0 else None))
+    launches = _launched(cuda_ops, "(b)", ("row_gather", "row_scatter",
+                                           "fused_update_scatter"), "spill")
+    if len(rec["gather"]) != 1 or len(rec["scatter"]) != 1:
+        raise AssertionError("spill (b): the first step did not demote "
+                             "and promote")
+    big = rec["gather"][0]
+    g_err = _same_bits(torch, cuda_ops.gather_rows_2d(**big),
+                       cuda_ops.gather_rows_2d_plain(**big))
+    s = rec["scatter"][0]
+    got = s["table2d"].clone()
+    cuda_ops.scatter_rows_set_2d(**dict(s, table2d=got))
+    want = cuda_ops.scatter_rows_set_2d_plain(**dict(
+        s, table2d=s["table2d"].clone()))
+    cap = s["cap"] if s["cap"] is not None else None
+    n = (cap * s["ch"]) if cap else got.shape[0] - s["ch"]
+    s_err = _same_bits(torch, got[:n], want[:n])
+    if g_err or s_err:
+        raise AssertionError(f"spill (b) own operands: demote gather "
+                             f"{g_err} apart, promote scatter {s_err}")
+    demote_rows = int(big["idx"].numel())
+    del rec, got, want, big, s
+    torch.cuda.empty_cache()
+    ms = [st["ms"] for st in steps]
+    hot = np.unique(batches[-1])
+    return {"steps": steps, "launches": launches,
+            "ms_per_step_median": float(np.median(ms)),
+            "missing_after_prepare_sum": sum(
+                st["missing_after_prepare"] for st in steps),
+            "promote_loop_ms_at_batch_unique": _promote_loop_ms(hot),
+            "batch_unique_keys": len(hot),
+            "own_operands": {"demote_row_gather_rows": demote_rows,
+                             "demote_row_gather_max_abs_err": g_err,
+                             "promote_row_scatter_max_abs_err": s_err},
+            "total_keys_after": hy.tier.total_keys(hy.state)}
+
+
+def _narrow_run(torch, de, where, seed):
+    """The spill sequence at SPILL_NARROW (dim, slots, keys) on one
+    device: the prefill in 8 blocks, then 5 steps of 1,024 zipf ids."""
+    from recommenders_addons_tpu_torch.ops.spill import HybridTable
+
+    dim, cap, n = SPILL_NARROW
+    var = de.Variable(name="spill_narrow", dim=dim, init_capacity=cap,
+                      evict_strategy=de.EvictStrategy.LRU, device=where)
+    opt = de.Adagrad(0.1)
+    hy = HybridTable(var, SPILL_HIGH, SPILL_LOW)
+    hy.state = de.create_slots(var, hy.state, opt)
+    keys = _spill_keys(seed + 3, n)
+    rng = np.random.default_rng(seed + 3)
+    vals = rng.normal(size=(n, dim)).astype(np.float32)
+    blk = n // 8
+    for b in range(8):
+        sl = slice(b * blk, (b + 1) * blk)
+        hy.upsert(torch.from_numpy(keys[sl]).to(where),
+                  torch.from_numpy(vals[sl]).to(where), step=b)
+    perm = rng.permutation(n)
+    for t in range(5):
+        ids = _zipf_ids(rng, keys, perm, 1024)
+        hy.prepare_batch(ids)
+        _, ctx = var.embedding_lookup(hy.state,
+                                      torch.from_numpy(ids).to(where),
+                                      step=10 + t)
+        g = torch.from_numpy(rng.normal(size=(1024, dim)).astype(
+            np.float32)).to(where)
+        hy.state = hy.tier.apply_gradients(hy.state, ctx, g, opt,
+                                           step=10 + t)
+    st = hy.state
+    planes = {f: getattr(st, f).cpu() for f in ("key_lo", "key_hi",
+                                                 "scores")}
+    planes["rows"] = st.rows[:st.capacity * st.chunks].cpu().view(
+        torch.int32)
+    return planes, _store_sorted(hy.tier.store), vars(hy.tier.stats)
+
+
+def _spill_narrow(torch, de, dev, seed):
+    """(c) The narrow sequence on the card and on the CPU: key planes and
+    scores bit-exact, the stores' keys and scores bit-exact, the
+    SpillStats equal; the rows the optimizer trained (the table's and
+    the store's value and slot columns) within SURFACE_RTOL /
+    SURFACE_ATOL, since the grad combine's f64 prefix sums are taken in
+    another order on the card (as in the sharded phase's (d))."""
+    card = _narrow_run(torch, de, dev, seed)
+    cpu = _narrow_run(torch, de, "cpu", seed)
+    for f in ("key_lo", "key_hi", "scores"):
+        if not torch.equal(card[0][f], cpu[0][f]):
+            raise AssertionError(f"spill (c): {f} differ card vs CPU")
+    for k in ("keys", "scores"):
+        if not np.array_equal(card[1][k], cpu[1][k]):
+            raise AssertionError(f"spill (c): the stores' {k} differ")
+    if card[2] != cpu[2]:
+        raise AssertionError(f"spill (c): stats {card[2]} vs {cpu[2]}")
+    table_err = _rows_close(torch, card[0]["rows"].view(torch.float32),
+                            cpu[0]["rows"].view(torch.float32),
+                            "spill (c) table rows")
+    store_err = _rows_close(
+        torch, torch.from_numpy(card[1]["rows"].view(np.float32)),
+        torch.from_numpy(cpu[1]["rows"].view(np.float32)),
+        "spill (c) store rows")
+    dim, cap, n = SPILL_NARROW
+    return {"dim": dim, "slots": cap, "keys": n, "stats": card[2],
+            "tier_keys": int(len(card[1]["keys"])),
+            "table_rows_max_abs_err": table_err,
+            "store_rows_max_abs_err": store_err,
+            "rows_bit_equal": bool(
+                torch.equal(card[0]["rows"], cpu[0]["rows"])
+                and np.array_equal(card[1]["rows"], cpu[1]["rows"]))}
+
+
+class _CallTimer:
+    """Wraps ``module.<name>`` for a ``with`` block and sums its calls'
+    wall time (ms)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.ms = module, name, 0.0
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                self.ms += (time.perf_counter() - t0) * 1e3
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _spill_checkpoint(torch, cuda_ops, de, var, hy, opt, tmp):
+    """(d) save_dynamic_embedding(..., tier=hy), then a cold restore into
+    a fresh HybridTable: every key of each tier bit-equal (rows, score,
+    slot). Save and restore ms and GB for each tier (the tier's part
+    timed around save_tier / load_tier)."""
+    import os
+
+    from recommenders_addons_tpu_torch.ops.spill import HybridTable
+    from recommenders_addons_tpu_torch.train import checkpoint as ckpt
+
+    saved_card = _per_key(torch, var, hy.state)
+    saved_tier = _store_sorted(hy.tier.store)
+    cuda_ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _CallTimer(ckpt, "save_tier") as tsave:
+        vdir = ckpt.save_dynamic_embedding(var, hy.state, tmp, tier=hy)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    tier_bytes = _dir_bytes(os.path.join(vdir, "tier"))
+    card_bytes = _dir_bytes(vdir) - tier_bytes
+    hy2 = HybridTable(var, SPILL_HIGH, SPILL_LOW)
+    hy2.state = de.create_slots(var, hy2.state, opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _CallTimer(ckpt, "load_tier") as tload:
+        hy2.state = ckpt.load_dynamic_embedding(var, hy2.state, tmp,
+                                                tier=hy2)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launched(cuda_ops, "(d)", ("row_gather", "row_scatter"),
+                         "spill")
+    _same_per_key(torch, _per_key(torch, var, hy2.state), saved_card,
+                  "spill (d) card tier restore")
+    _same_store(_store_sorted(hy2.tier.store), saved_tier,
+                "spill (d) host tier restore")
+    out = {"card": {"keys": int(saved_card["keys"].numel()),
+                    "gb": card_bytes / 1e9,
+                    "save_ms": save_ms - tsave.ms,
+                    "restore_ms": restore_ms - tload.ms},
+           "tier": {"keys": int(len(saved_tier["keys"])),
+                    "gb": tier_bytes / 1e9, "save_ms": tsave.ms,
+                    "restore_ms": tload.ms},
+           "launches": launches}
+    del hy2, saved_card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spill_serving(torch, cuda_ops, de, var, hy, keys, seed, dev):
+    """(e) lookup_through of SPILL_BATCH ids (card hits, tier hits,
+    unknown keys) and EmbeddingServer(tiers=) over freeze(..., float32):
+    SPILL_REQUESTS checked and SPILL_TIMED timed requests of 256 x 26
+    ids, each bit-equal to a numpy reference from the two tiers' exports
+    (the card's row first, then the tier's, then the default 0)."""
+    from recommenders_addons_tpu_torch.ops import hashtable
+    from recommenders_addons_tpu_torch.serving import (
+        EmbeddingClient,
+        EmbeddingServer,
+    )
+
+    st = hy.state
+    mask = hashtable.occupancy_mask(var.spec, st)
+    ck = st.keys[mask].cpu().numpy()
+    cv = st.values[mask].cpu().numpy()
+    co = np.argsort(ck)
+    ck, cv = ck[co], cv[co]
+    tk, tv, _, _ = hy.tier.store.export_all()
+    to = np.argsort(tk)
+    tk, tv = tk[to], tv[to]
+
+    def reference(q):
+        out = np.zeros((len(q), var.dim), np.float32)
+        found = np.zeros(len(q), bool)
+        for k, v in ((tk, tv), (ck, cv)):  # the card's row wins
+            pos = np.minimum(np.searchsorted(k, q), len(k) - 1)
+            hit = k[pos] == q
+            out[hit] = v[pos[hit]]
+            found |= hit
+        return out, found
+
+    rng = np.random.default_rng(seed + 5)
+    unknown = (1 << 62) + np.arange(SPILL_BATCH // 8, dtype=np.int64)
+    q = np.concatenate([rng.choice(ck, SPILL_BATCH * 3 // 8),
+                        rng.choice(tk, SPILL_BATCH // 2), unknown])
+    q = q[rng.permutation(len(q))]
+    cuda_ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = hy.tier.lookup_through(st, torch.from_numpy(q).to(dev))
+    torch.cuda.synchronize()
+    lt_ms = (time.perf_counter() - t0) * 1e3
+    want, found = reference(q)
+    if not np.array_equal(got.cpu().numpy().view(np.int32),
+                          want.view(np.int32)):
+        raise AssertionError("spill (e): lookup_through differs from the "
+                             "reference")
+    frozen = de.freeze(var, st, dtype=torch.float32)
+    perm = rng.permutation(len(keys))
+    reqs = []
+    for _ in range(SPILL_REQUESTS + SPILL_TIMED):
+        ids = _zipf_ids(rng, keys, perm, 256 * FEATURES)
+        ids[::97] = (1 << 62) + rng.integers(0, 1 << 20, len(ids[::97]))
+        reqs.append(ids)
+    times = []
+    with EmbeddingServer({"emb": frozen}, tiers={"emb": hy.tier},
+                         port=0) as srv:
+        cli = EmbeddingClient(srv.host, srv.port)
+        for i, r in enumerate(reqs):
+            t0 = time.perf_counter()
+            vals, fnd = cli.lookup("emb", r)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i < SPILL_REQUESTS:
+                w, wf = reference(r)
+                if not (np.array_equal(fnd, wf) and np.array_equal(
+                        vals.view(np.int32), w.view(np.int32))):
+                    raise AssertionError(f"spill (e): request {i} differs "
+                                         "from the reference")
+    launches = _launched(cuda_ops, "(e)", ("row_gather",), "spill")
+    timed = times[SPILL_REQUESTS:]
+    del frozen
+    torch.cuda.empty_cache()
+    return {"lookup_through_ids": len(q), "lookup_through_ms": lt_ms,
+            "lookup_through_found": int(found.sum()),
+            "served_from_tier": hy.tier.stats.served_from_tier,
+            "requests_checked": SPILL_REQUESTS,
+            "request_ms_p50": float(np.median(timed)),
+            "request_ms_max": float(np.max(timed)),
+            "ids_per_request": 256 * FEATURES, "launches": launches}
+
+
+def _spill_sharded(torch, cuda_ops, de, dev, keys, seed):
+    """(f1) A ShardedSpillTier on SHARDS logical shards of the card
+    (DLRMConfig()'s table, split): (a)'s prefill, then
+    SPILL_SHARDED_STEPS steps."""
+    from recommenders_addons_tpu_torch import parallel
+    from recommenders_addons_tpu_torch.ops import hashtable
+    from recommenders_addons_tpu_torch.ops.spill import HybridTable
+
+    mesh = parallel.create_mesh(devices=[dev] * SHARDS)
+    sv = parallel.ShardedVariable(
+        de.Variable(name="spill_sharded", dim=DIM, init_capacity=C,
+                    evict_strategy=de.EvictStrategy.LRU), mesh)
+    opt = de.Adagrad(0.1)
+    hy = HybridTable(sv, SPILL_HIGH, SPILL_LOW)
+    hy.state = sv.create_slots(hy.state, opt)
+    cuda_ops.reset_launches()
+    prefill = _spill_prefill(torch, sv.var, hy, keys, seed, dev)
+    rng = np.random.default_rng(seed + 7)
+    perm = rng.permutation(len(keys))
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    steps = []
+    for i in range(SPILL_SHARDED_STEPS):
+        ids = _zipf_ids(rng, keys, perm, SPILL_BATCH)
+        g = torch.randn((SPILL_BATCH, DIM), device=dev, generator=gen)
+        steps.append(_spill_step(torch, de, sv.var, hy, opt, ids, g, i + 1,
+                                 dev))
+    launches = _launched(cuda_ops, "(f) sharded",
+                         ("row_gather", "row_scatter",
+                          "fused_update_scatter"), "spill")
+    out = {"shards": SHARDS, "prefill": prefill, "steps": steps,
+           "ms_per_step_median": float(np.median([s["ms"] for s in steps])),
+           "live_keys_per_shard": [int(hashtable.size(sv.spec, st))
+                                   for st in hy.state.shards],
+           "total_keys_after": hy.tier.total_keys(hy.state),
+           "launches": launches}
+    del hy
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spill_remote(torch, cuda_ops, de, dev, seed):
+    """(f2) A SpillTier whose store is a RemoteKVStore on an in-process
+    HostKVServer over the native store, beside one over a local native
+    store, from copies of one table (dim 64, SPILL_REMOTE_CAP slots,
+    Adagrad, three quarters full): SPILL_REMOTE_N rows demoted, then
+    promoted back; planes, stores and stats bit-equal after each; ms per
+    row each way."""
+    from recommenders_addons_tpu_torch.ops.spill import (
+        SpillTier,
+        make_host_store,
+    )
+    from recommenders_addons_tpu_torch.serving.kv import (
+        HostKVServer,
+        RemoteKVStore,
+    )
+
+    var = de.Variable(name="spill_remote", dim=DIM,
+                      init_capacity=SPILL_REMOTE_CAP,
+                      evict_strategy=de.EvictStrategy.LRU)
+    st = de.create_slots(var, var.init(), de.Adagrad(0.1))
+    n_fill = SPILL_REMOTE_CAP * 3 // 4
+    k = torch.from_numpy(_spill_keys(seed + 9, n_fill)).to(dev)
+    scores = torch.randint(0, 1000, (n_fill,), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed + 9), dtype=torch.int32)
+    st = var.import_batch(st, k, _spill_values(torch, k, DIM, seed),
+                          scores=scores)
+    states = {"remote": st, "local": _clone_state(st)}
+    del st
+    cuda_ops.reset_launches()
+    ms = {}
+    with HostKVServer(make_host_store(DIM), port=0) as srv:
+        tiers = {"remote": SpillTier(var, store=RemoteKVStore(
+                     srv.host, srv.port, dim=DIM)),
+                 "local": SpillTier(var)}
+
+        def run(what, fn):
+            for name, tier in tiers.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[name] = fn(tier, states[name])
+                torch.cuda.synchronize()
+                ms[f"{name}_{what}_ms"] = (time.perf_counter() - t0) * 1e3
+            a, b = states["remote"], states["local"]
+            n = a.capacity * a.chunks  # the trash row after is unspecified
+            for f in ("key_lo", "key_hi", "scores", "rows"):
+                if not torch.equal(getattr(a, f)[:n], getattr(b, f)[:n]):
+                    raise AssertionError(f"spill (f) remote {what}: {f} "
+                                         "differ")
+            _same_store(_store_sorted(tiers["remote"].store),
+                        _store_sorted(tiers["local"].store),
+                        f"spill (f) remote {what}")
+            if vars(tiers["remote"].stats) != vars(tiers["local"].stats):
+                raise AssertionError(f"spill (f) remote {what}: stats "
+                                     "differ")
+
+        run("demote", lambda t, st: t.demote(st, SPILL_REMOTE_N))
+        ids = tiers["local"].store.export_all()[0]
+        run("promote", lambda t, st: t.promote(st, ids))
+        promoted = tiers["remote"].stats.promoted
+    launches = _launched(cuda_ops, "(f) remote", ("row_gather",
+                                                  "row_scatter"), "spill")
+    n = SPILL_REMOTE_N
+    out = dict(ms, rows=n, promoted=promoted,
+               **{f"{k[:-3]}_us_per_row": v * 1e3 / n
+                  for k, v in ms.items()}, launches=launches)
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def spill_phase(torch, cuda_ops, dev, seed):
+    """Phase 9: the spill tier at DLRM's table width (dim 64, C slots,
+    Adagrad created first, LRU, f32) under a HybridTable (watermarks
+    SPILL_HIGH / SPILL_LOW) with SPILL_KEYS keys, twice its capacity:
+    (a) the prefill, (b) training through the tier, (c) a narrow run
+    card against CPU, (d) both tiers checkpointed and cold-restored, (e)
+    tiered serving, (f) a ShardedSpillTier and a networked shared store.
+    Launch counts are reset before each part and read after it."""
+    import shutil
+
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.ops.spill import HybridTable
+
+    t_phase = time.perf_counter()
+    var = de.Variable(name="spill", dim=DIM, init_capacity=C,
+                      evict_strategy=de.EvictStrategy.LRU)
+    opt = de.Adagrad(0.1)
+    hy = HybridTable(var, SPILL_HIGH, SPILL_LOW)
+    hy.state = de.create_slots(var, hy.state, opt)
+    keys = _spill_keys(seed, SPILL_KEYS)
+    cuda_ops.reset_launches()
+    prefill = _spill_prefill(torch, var, hy, keys, seed, dev)
+    prefill["launches"] = _launched(cuda_ops, "(a)", ("row_gather",
+                                                      "row_scatter"), "spill")
+    training = _spill_training(torch, cuda_ops, de, var, hy, opt, keys,
+                               seed, dev)
+    narrow = _spill_narrow(torch, de, dev, seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    try:
+        ckpt = _spill_checkpoint(torch, cuda_ops, de, var, hy, opt, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    serving = _spill_serving(torch, cuda_ops, de, var, hy, keys, seed, dev)
+    del hy
+    torch.cuda.empty_cache()
+    sharded = _spill_sharded(torch, cuda_ops, de, dev, keys, seed)
+    remote = _spill_remote(torch, cuda_ops, de, dev, seed)
+    return {"config": f"Variable(dim={DIM}, init_capacity={C >> 20}Mi, "
+                      "LRU, float32) + Adagrad accumulator (rows of 512 B), "
+                      f"HybridTable({SPILL_HIGH}, {SPILL_LOW}); "
+                      f"{SPILL_KEYS >> 20}Mi keys",
+            "prefill": prefill, "training": training, "card_vs_cpu": narrow,
+            "checkpoint": ckpt, "serving": serving, "sharded": sharded,
+            "remote": remote, "phase_s": time.perf_counter() - t_phase,
+            "launches": {"spill_prefill": prefill["launches"],
+                         "spill_training": training["launches"],
+                         "spill_checkpoint": ckpt["launches"],
+                         "spill_serving": serving["launches"],
+                         "spill_sharded": sharded["launches"],
+                         "spill_remote": remote["launches"]}}
+
+
 def _dma_inputs(torch, dev, gen, cap, ch, n):
     """A [cap*ch, 128] table of random words; gather indices (random
     rows) and scatter indices (unique rows), each with sentinels,
@@ -2147,7 +2831,7 @@ def _dma_inputs(torch, dev, gen, cap, ch, n):
 
 
 def dma_bench_phase(torch, cuda_ops, dev, gen, card):
-    """Phase 8: the row-copy micro-benchmark (tools/dma_bench.py) at its
+    """Phase 10: the row-copy micro-benchmark (tools/dma_bench.py) at its
     two full-width shapes: every variant of its lists, plus a predicated
     gather (row and premultiplied predicate) and a predicated scatter,
     held bit-exact against its plain version at a ragged N; then the
@@ -2320,7 +3004,7 @@ def _ab_fused_check(torch, fn, mode, table, want, idx, packed, g):
 
 
 def ab_tools_phase(torch, cuda_ops, dev, gen, rate, card):
-    """Phase 9: the fused-apply probe's kernel (ab_fused) against its
+    """Phase 11: the fused-apply probe's kernel (ab_fused) against its
     plain version at the probe's full width, every mode and knob; the
     radix-histogram probe's kernel (radix_hist) against torch.bincount;
     each timed beside its plain version; then both tools' main(), the
@@ -2500,9 +3184,26 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     rate = mem_rate(name)
     dev = torch.device("cuda")
+    from recommenders_addons_tpu_torch import native
+
+    native_build = {}
+
+    def build_native():  # g++ for the host store, beside the nvcc builds
+        t = time.perf_counter()
+        try:
+            native.get_lib()
+        except RuntimeError as e:
+            native_build["error"] = e
+        native_build["s"] = time.perf_counter() - t
+
+    builder = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    builder.start()
     cuda_ops.build_kernels()  # one nvcc per source, all started together
     build_s = time.perf_counter() - t0
+    builder.join()
+    if "error" in native_build:
+        raise native_build["error"]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     kernels = kernel_phase(torch, cuda_ops, dev, gen, rate)
@@ -2527,6 +3228,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     sharded = sharded_phase(torch, cuda_ops, dev, args.seed)
     torch.cuda.empty_cache()
+    spill = spill_phase(torch, cuda_ops, dev, args.seed)
+    spill["native_build_s"] = native_build["s"]
+    torch.cuda.empty_cache()
     dma_kernels, dma = dma_bench_phase(torch, cuda_ops, dev, gen, card)
     kernels += dma_kernels
     torch.cuda.empty_cache()
@@ -2541,6 +3245,7 @@ def main(argv=None) -> int:
              "models_sparse_api": models["sparse_api"]["launches"],
              "models_learning_bars": models["learning_bars"]["launches"],
              "lifecycle": life["launches"], **sharded["launches"],
+             **spill["launches"],
              "dma_bench": dma["launches"], **ab["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -2568,6 +3273,7 @@ def main(argv=None) -> int:
     print(json.dumps({"models": dict(models, card=card)}))
     print(json.dumps({"lifecycle": dict(life, card=card)}))
     print(json.dumps({"sharded": dict(sharded, card=card)}))
+    print(json.dumps({"spill": dict(spill, card=card)}))
     print(json.dumps({"dma_bench": dma}))
     print(json.dumps({"ab_tools": ab}))
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,10 @@ package's byte for byte; and sharding (``parallel``): ``ShardedVariable``
 routes each key to its owner shard by all-to-all over an in-process mesh
 (``parallel.create_mesh``; several logical shards may share one card) or
 a ``torch.distributed`` process group (``parallel.GroupMesh``), with the
-``mesh=`` models and layers and sharded checkpoints.
+``mesh=`` models and layers and sharded checkpoints; and the host-DRAM
+spill tier (``de.SpillTier``, ``de.HybridTable``; ops/spill.py) with its
+native C++ store (``native/``) and the networked shared KV tier
+(``serving.kv``).
 """
 
 from __future__ import annotations
@@ -33,3 +36,10 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from recommenders_addons_tpu_torch import dynamic_embedding  # noqa: E402,F401
+
+
+def register_all(**_kwargs):
+    """A no-op kept for the reference's ``tfra.register_all``, which loads
+    custom-op libraries for SavedModel serving; the port has no op
+    registry."""
+    return None

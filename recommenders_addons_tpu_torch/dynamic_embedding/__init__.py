@@ -5,8 +5,9 @@ sparse lookup API (``embedding_lookup_sparse``,
 ``data_flow``, the scope store (``get_variable``), string hashing, the
 serving format, and the table lifecycle: the object tables and their
 creators (``CuckooHashTable``, ``HkvHashTable``, ``RedisTable``,
-``KVCreator``), the shadow ops, the restrict policies and warm start.
-The spill tier's names wait for the port of ``ops/spill.py``.
+``KVCreator``), the shadow ops, the restrict policies and warm start,
+and the host-DRAM spill tier (``SpillTier``, ``ShardedSpillTier``,
+``HybridTable``, ``HostKVStore``, ``make_spill_tier``).
 
 Usage::
 
@@ -15,6 +16,7 @@ Usage::
 
 from recommenders_addons_tpu_torch.ops.hashing import (  # noqa: F401
     EMPTY_KEY,
+    default_partition_fn,
     hash_strings,
 )
 from recommenders_addons_tpu_torch.ops.hashtable import (  # noqa: F401
@@ -99,6 +101,13 @@ from recommenders_addons_tpu_torch.ops.restrict import (  # noqa: F401
 from recommenders_addons_tpu_torch.ops.warm_start import (  # noqa: F401
     WarmStartHook,
     warm_start,
+)
+from recommenders_addons_tpu_torch.ops.spill import (  # noqa: F401
+    HostKVStore,
+    HybridTable,
+    ShardedSpillTier,
+    SpillTier,
+    make_spill_tier,
 )
 from recommenders_addons_tpu_torch.ops import serving  # noqa: F401
 from recommenders_addons_tpu_torch.ops.serving import (  # noqa: F401

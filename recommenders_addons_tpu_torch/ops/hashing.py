@@ -8,8 +8,10 @@ the sign-extended bits masked off (``_srl``). Outputs are int64 tensors
 that hold the unsigned results: ``mix64`` returns the uint64 bits
 reinterpreted as int64, ``mix32`` the uint32 value in ``[0, 2^32)``.
 
-``hash_strings`` fingerprints string keys on the host, in numpy, as the
-JAX package does.
+``hash_strings`` fingerprints string keys on the host, as the JAX
+package does: FNV-1a through the native batch hasher
+(``native/host_kv.cc``), whose plain version is the numpy
+``_fnv1a64_vectorized``.
 """
 
 from __future__ import annotations
@@ -198,8 +200,9 @@ def hash_strings(strings, dtype=np.int64, algo: str = "fnv1a") -> np.ndarray:
     """Host-side fingerprints of string keys as int64 numpy ids (a
     feature-pipeline boundary op), bit-identical to the JAX package's
     ``hash_strings``: ``fnv1a`` (default) or ``blake2`` (8-byte BLAKE2b).
-    Neither gives the EMPTY sentinel. The JAX package's native batch
-    hasher gives the fnv1a path's bits faster; here it is numpy only."""
+    Neither gives the EMPTY sentinel. ``fnv1a`` runs the native batch
+    hasher (:func:`_native_hash`), bit for bit the numpy
+    ``_fnv1a64_vectorized``."""
     if algo == "blake2":
         out = np.empty(len(strings), dtype=np.uint64)
         for i, b in enumerate(_utf8(strings)):
@@ -210,4 +213,26 @@ def hash_strings(strings, dtype=np.int64, algo: str = "fnv1a") -> np.ndarray:
         return out.astype(dtype)
     if algo != "fnv1a":
         raise ValueError(f"unknown algo {algo}")
-    return _fnv1a64_vectorized(strings).astype(dtype)
+    return _native_hash(strings).astype(dtype)
+
+
+def _native_hash(strings) -> np.ndarray:
+    """FNV-1a64 and the SplitMix64 finalizer of each string, in C++
+    (``hkv_fnv1a64_batch``, threaded over the batch)."""
+    import ctypes
+
+    from recommenders_addons_tpu_torch.native import get_lib
+    from recommenders_addons_tpu_torch.utils.config import env_config
+
+    bs = _utf8(strings)
+    data = b"".join(bs)
+    offsets = np.zeros(len(bs) + 1, np.int64)
+    np.cumsum([len(b) for b in bs], out=offsets[1:])
+    out = np.empty(len(bs), np.int64)
+    buf = ctypes.create_string_buffer(data, len(data) or 1)
+    get_lib().hkv_fnv1a64_batch(
+        ctypes.cast(buf, ctypes.c_void_p),
+        offsets.ctypes.data_as(ctypes.c_void_p), len(bs),
+        out.ctypes.data_as(ctypes.c_void_p),
+        env_config().host_store_threads)
+    return out

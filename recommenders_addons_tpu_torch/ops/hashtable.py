@@ -66,6 +66,32 @@ def dtype_name(dt) -> str:
     return str(torch_dtype(dt)).rsplit(".", 1)[-1]
 
 
+def np_dtype(dt) -> np.dtype:
+    """The numpy dtype the host holds ``dt`` as: 16-bit floats as int16
+    words (numpy has no bfloat16; the bytes are the same)."""
+    dt = torch_dtype(dt)
+    if dt in (torch.bfloat16, torch.float16):
+        return np.dtype(np.int16)
+    return np.dtype(dtype_name(dt))
+
+
+def host_words(t: torch.Tensor) -> np.ndarray:
+    """A CPU copy of ``t`` as numpy, 16-bit floats as their int16 words."""
+    t = t.contiguous()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+def from_words(a: np.ndarray, dt) -> torch.Tensor:
+    """The reverse of :func:`host_words`: a CPU tensor of dtype ``dt``."""
+    dt = torch_dtype(dt)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dt in (torch.bfloat16, torch.float16) and t.dtype == torch.int16:
+        return t.view(dt)
+    return t.to(dt)
+
+
 def _round_up_pow2(x: int) -> int:
     return 1 << (int(x) - 1).bit_length()
 

@@ -9,8 +9,9 @@ ops/hashtable.py, so the reference's three table classes are views of it:
   when its load factor crosses ``grow_threshold`` or an insert would
   evict or drop (the reference's libcuckoo resize-on-insert);
 * ``HkvHashTable``: capacity-bounded, with evict-strategy scores;
-* ``RedisTable``: the JAX package's plain subclass (its host tier waits
-  for the port of ops/spill.py); config fields are accepted and mapped.
+* ``RedisTable``: the JAX package's plain subclass; the network KV role
+  is the host-DRAM spill tier (ops/spill.py, ``serving.kv`` for a shared
+  one); config fields are accepted and mapped.
 
 A wrapper holds its ``TableState`` and exposes the reference's
 mutate-in-place methods; host-side results (exports) are CPU tensors.

@@ -1,10 +1,16 @@
 """Serving runtime: a standalone embedding-lookup server over frozen,
-compressed tables (ops/serving.py), answering batched lookups over HTTP
-(optional bearer-token auth and TLS).
+compressed tables (ops/serving.py) with optional host-DRAM spill tiers,
+answering batched lookups over HTTP (optional bearer-token auth and
+TLS), and the networked shared KV tier (``serving/kv.py``).
 
     python -m recommenders_addons_tpu_torch.serving --dir <export_dir> --port 8501
 """
 
+from recommenders_addons_tpu_torch.serving.kv import (  # noqa: F401
+    HostKVServer,
+    RemoteKVStore,
+    ShardedRemoteKVStore,
+)
 from recommenders_addons_tpu_torch.serving.server import (  # noqa: F401
     EmbeddingClient,
     EmbeddingServer,

@@ -11,7 +11,9 @@ Endpoints:
                     -> {"values": [[...]...], "found": [...]}
   GET  /v1/status   -> {"tables": {name: {size, dim, capacity, value_dtype}}}
 
-Still to port: host-DRAM spill tiers (``tiers=``) and the gRPC front end.
+A table may have a host-DRAM spill tier (``tiers=``, ops/spill.py): its
+misses are read through the tier's store, and found where the tier holds
+them. Still to port: the gRPC front end.
 """
 
 from __future__ import annotations
@@ -39,10 +41,12 @@ def _pad_bucket(n: int) -> int:
 
 class _TableEntry:
     """One served table (a FrozenTable, or anything with .lookup/.spec/
-    .size and a ``state`` on its device)."""
+    .size and a ``state`` on its device), with an optional spill tier
+    read through for its misses."""
 
-    def __init__(self, table):
+    def __init__(self, table, tier=None):
         self.table = table
+        self.tier = tier
         self._lock = threading.Lock()
 
     def info(self) -> Dict[str, Any]:
@@ -62,9 +66,19 @@ class _TableEntry:
             vals, found = self.table.lookup(
                 torch.from_numpy(padded).to(self.table.state.device),
                 return_exists=True)
-            vals = vals[:n].cpu().numpy()
+            vals = vals[:n].cpu()
             found = found[:n].cpu().numpy()
-        return vals, found
+        if self.tier is not None and not found.all():
+            miss = ~found
+            tvals, _, _, thit = self.tier.store.get(ids[miss])
+            sub = vals[torch.from_numpy(miss)]
+            hit = torch.from_numpy(thit)
+            sub[hit] = hashtable.from_words(
+                tvals, self.tier.var.value_dtype)[hit].to(sub.dtype)
+            vals[torch.from_numpy(miss)] = sub
+            found = found.copy()
+            found[miss] = thit
+        return vals.numpy(), found
 
 
 class _Batcher:
@@ -136,9 +150,10 @@ class _Batcher:
 class EmbeddingServer:
     """HTTP serving front-end over one or more tables.
 
-    ``tables``: {name: FrozenTable}. ``token`` requires
+    ``tables``: {name: FrozenTable}; ``tiers={name: SpillTier}`` reads a
+    table's misses through its host-DRAM tier. ``token`` requires
     ``Authorization: Bearer <token>``; ``tls_cert``/``tls_key`` serve
-    HTTPS. ``tiers=`` (host-DRAM read-through) is not ported yet."""
+    HTTPS."""
 
     def __init__(self, tables: Dict[str, Any],
                  tiers: Optional[Dict[str, Any]] = None,
@@ -147,11 +162,9 @@ class EmbeddingServer:
                  token: Optional[str] = None,
                  tls_cert: Optional[str] = None,
                  tls_key: Optional[str] = None):
-        if tiers:
-            raise NotImplementedError(
-                "spill tiers (ops/spill.py) are not ported yet")
+        tiers = tiers or {}
         expect_auth = f"Bearer {token}" if token else None
-        self._entries = {name: _TableEntry(tbl)
+        self._entries = {name: _TableEntry(tbl, tiers.get(name))
                          for name, tbl in tables.items()}
         self._batchers = {
             name: _Batcher(e, max_batch, max_wait_ms)

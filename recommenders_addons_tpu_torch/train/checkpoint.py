@@ -29,10 +29,13 @@ file streams into its own shard through ``import_local``, no routing;
 ``LAST_RESTORE_USED_DIRECT``), and otherwise partitions the rows by
 owner on the host (``import_host_arrays``).
 
-Waiting for the port of the spill tier and the host store, each raising
-meanwhile: a spill tier's own rows (``tier=``, ``save_tier`` /
-``load_tier``) and the native writer. A checkpoint's ``tier/`` rows are merged into the table
-when no tier is given, as the JAX package does.
+A spill tier's rows (``tier=``: a ``SpillTier``, ``ShardedSpillTier``,
+``HybridTable`` or a bare host store) are written beside the table's as
+``tier/<var>_mht_tier_rank<r>_size<s>-{keys,values,scores,slots.<n>}``
+(``save_tier``), and a restore given a tier reads them into its store
+(``load_tier``); given none, it merges them into the table with the JAX
+package's warning. Every file is written through the native buffered row
+writer (``native/host_kv.cc``, ``hkv_write_gathered``).
 
 ``DECheckpoint`` keeps tables as sidecar files and dense entries
 (``nn.Module``s by their ``state_dict``, tensors, and dicts, lists and
@@ -54,7 +57,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from recommenders_addons_tpu_torch.ops import hashtable
+from recommenders_addons_tpu_torch.ops import hashing, hashtable
 from recommenders_addons_tpu_torch.ops.variable import Variable
 from recommenders_addons_tpu_torch.parallel.sharded import ShardedVariable
 from recommenders_addons_tpu_torch.utils.config import env_config
@@ -80,13 +83,6 @@ def _resolve_dir(directory: Optional[str]) -> str:
     return d
 
 
-def _no_tier(tier):
-    if tier is not None:
-        raise NotImplementedError(
-            "checkpointing a spill tier's rows waits for the port of "
-            "ops/spill.py")
-
-
 _SHARD_RE = re.compile(r"_mht_(\d+)of(\d+)_rank(\d+)_size(\d+)-keys$")
 
 
@@ -98,14 +94,6 @@ def _var_of(table) -> Variable:
     if not isinstance(table, Variable):
         raise TypeError(f"not a table: {type(table).__name__}")
     return table
-
-
-def save_tier(*_a, **_k):
-    _no_tier(True)
-
-
-def load_tier(*_a, **_k):
-    _no_tier(True)
 
 
 def _de_dir(directory: str, global_step: Optional[int]) -> str:
@@ -121,39 +109,137 @@ def _atomic_write(path: str, write_fn):
     os.replace(tmp, path)
 
 
-def _np_dtype(dt) -> np.dtype:
-    """The numpy dtype a file holds ``dt`` as: 16-bit floats as int16
-    words (numpy has no bfloat16; the bytes are the same)."""
-    dt = hashtable.torch_dtype(dt)
-    if dt in (torch.bfloat16, torch.float16):
-        return np.dtype(np.int16)
-    return np.dtype(hashtable.dtype_name(dt))
+def _native_dump(path: str, arr: np.ndarray, sel: np.ndarray,
+                 buffer_rows: int) -> bool:
+    """Write ``arr[sel]`` through the native buffered row writer
+    (``hkv_write_gathered``, the reference's streaming SaveToFileSystem
+    role) to a temporary file renamed into place, staging at most
+    ``buffer_rows`` rows (and no more than it writes: the writer
+    allocates its whole buffer). False when the write fails (the numpy
+    path then tries); the library's build raises."""
+    import ctypes
 
+    from recommenders_addons_tpu_torch.native import get_lib
 
-def _host_words(t: torch.Tensor) -> np.ndarray:
-    """A CPU copy of ``t`` as numpy, 16-bit floats as their int16 words."""
-    t = t.contiguous()
-    if t.dtype in (torch.bfloat16, torch.float16):
-        t = t.view(torch.int16)
-    return t.cpu().numpy()
-
-
-def _from_words(a: np.ndarray, dt) -> torch.Tensor:
-    """The reverse of :func:`_host_words`: a CPU tensor of dtype ``dt``."""
-    dt = hashtable.torch_dtype(dt)
-    t = torch.from_numpy(a)
-    if dt in (torch.bfloat16, torch.float16) and t.dtype == torch.int16:
-        return t.view(dt)
-    return t.to(dt)
+    lib = get_lib()
+    arr = np.ascontiguousarray(arr)
+    sel = np.ascontiguousarray(sel, np.int64)
+    row_bytes = arr.dtype.itemsize * int(np.prod(arr.shape[1:] or (1,)))
+    tmp = path + ".tmp"
+    n = lib.hkv_write_gathered(
+        tmp.encode(), arr.ctypes.data_as(ctypes.c_void_p), row_bytes,
+        sel.ctypes.data_as(ctypes.c_void_p), len(sel),
+        max(min(int(buffer_rows), len(sel)), 1))
+    if n != len(sel):
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        return False
+    os.replace(tmp, path)
+    return True
 
 
 def _dump_rows(path: str, arr: np.ndarray, buffer_size: int):
-    """Write ``arr``'s rows in ``buffer_size``-row chunks, atomically."""
+    """Write ``arr``'s rows in ``buffer_size``-row chunks, atomically:
+    the native writer, numpy when its write fails."""
+    if _native_dump(path, arr, np.arange(len(arr)), buffer_size):
+        return
+
     def w(f):
         for off in range(0, len(arr), buffer_size):
             f.write(np.ascontiguousarray(arr[off:off + buffer_size]).tobytes())
 
     _atomic_write(path, w)
+
+
+def _tier_store(tier_or_store):
+    """The host store of a SpillTier / ShardedSpillTier / HybridTable, or
+    the store itself."""
+    if hasattr(tier_or_store, "export_all"):
+        return tier_or_store
+    if hasattr(tier_or_store, "tier"):  # HybridTable
+        return tier_or_store.tier.store
+    return tier_or_store.store
+
+
+def _process() -> tuple:
+    """``(rank, world size)`` of an initialised ``torch.distributed``
+    group, else ``(0, 1)``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def save_tier(tier, var: Variable, vdir: str, proc_size: int = 1,
+              proc_rank: int = 0, buffer_size: Optional[int] = None) -> int:
+    """Dump a spill tier's rows (keys, values, scores, optimizer slots)
+    as sidecar files under ``<vdir>/tier/``, so a cold restore serves
+    every key. A shared store (``is_shared``: one network tier for every
+    process) is dumped by rank 0 only. Returns the rows written."""
+    buffer_size = _resolve_buffer(buffer_size)
+    store = _tier_store(tier)
+    if proc_rank != 0 and getattr(store, "is_shared", False):
+        return 0
+    keys, values, scores, slots = store.export_all()
+    keys = np.asarray(keys, hashtable.np_dtype(var.key_dtype)).reshape(-1)
+    vdt = hashtable.np_dtype(var.value_dtype)
+    tdir = os.path.join(vdir, "tier")
+    os.makedirs(tdir, exist_ok=True)
+    prefix = os.path.join(
+        tdir, f"{var.name}_mht_tier_rank{proc_rank}_size{proc_size}")
+    _dump_rows(prefix + "-keys", keys, buffer_size)
+    _dump_rows(prefix + "-values",
+               np.asarray(values, vdt).reshape(-1, var.dim), buffer_size)
+    _dump_rows(prefix + "-scores", np.asarray(scores).astype(
+        hashtable.np_dtype(var.spec.score_dtype)), buffer_size)
+    for name in sorted(slots):
+        _dump_rows(prefix + f"-slots.{name}",
+                   np.asarray(slots[name], vdt).reshape(-1, var.dim),
+                   buffer_size)
+    return len(keys)
+
+
+def load_tier(tier, var: Variable, vdir: str,
+              proc_size: Optional[int] = None,
+              proc_rank: Optional[int] = None,
+              num_shards: Optional[int] = None,
+              buffer_size: Optional[int] = None) -> int:
+    """Read a checkpoint's tier files (any saved rank layout), streamed
+    in ``buffer_size``-row chunks, into a tier's store. Over several
+    processes (rank and world from ``torch.distributed`` when it is
+    initialised) each takes its part: a shared store the keys with
+    ``shard_of_np(key, proc_size) == rank``; a local store, given the
+    sharded table's ``num_shards``, the keys whose owner shard this
+    process holds (shards are placed on processes in contiguous blocks),
+    which is where demote would have put them. Returns the rows this
+    process loaded."""
+    tdir = os.path.join(vdir, "tier")
+    if not os.path.isdir(tdir):
+        return 0
+    rank, world = _process()
+    proc_size = world if proc_size is None else proc_size
+    proc_rank = rank if proc_rank is None else proc_rank
+    store = _tier_store(tier)
+    shared = getattr(store, "is_shared", False)
+    buffer_size = _resolve_buffer(buffer_size)
+    loaded = 0
+    for k, v, sc, sl in _iter_shard_chunks(tdir, var, buffer_size):
+        keys = k.numpy().astype(np.int64)
+        values, scores = hashtable.host_words(v), sc.numpy()
+        slots = {n: hashtable.host_words(c) for n, c in sl.items()}
+        if proc_size > 1:
+            if not shared and num_shards and num_shards % proc_size == 0:
+                spp = num_shards // proc_size  # device shards a process
+                mine = (hashing.shard_of_np(keys, num_shards)
+                        // spp) == proc_rank
+            else:
+                mine = hashing.shard_of_np(keys, proc_size) == proc_rank
+            keys, values, scores = keys[mine], values[mine], scores[mine]
+            slots = {n: c[mine] for n, c in slots.items()}
+        store.put(keys, values, scores, slots or None)
+        loaded += len(keys)
+    return loaded
 
 
 def _live_rows(var: Variable, state: hashtable.TableState):
@@ -167,9 +253,10 @@ def _live_rows(var: Variable, state: hashtable.TableState):
     d = state.dim
     if state.slot_names:
         packed = hashtable.gather_packed(state, idx, ones)
-        cols = _host_words(packed[:, :d * (1 + len(state.slot_names))])
+        cols = hashtable.host_words(
+            packed[:, :d * (1 + len(state.slot_names))])
     else:
-        cols = _host_words(hashtable.gather_values(state, idx, ones))
+        cols = hashtable.host_words(hashtable.gather_values(state, idx, ones))
     keys = state.keys[idx.long()].cpu().numpy()
     scores = state.scores[idx.long()].cpu().numpy()
     slots = {nm: cols[:, state.slot_offset(nm):state.slot_offset(nm) + d]
@@ -198,11 +285,13 @@ def save_dynamic_embedding(var_or_sharded, state,
     sidecar files (a set for each shard this process holds, tagged with
     ``proc_rank`` / ``proc_size``) and its ``meta_rank<r>.json``.
     ``directory=None`` falls back to ``TFRA_SAVED_KV``, ``buffer_size=None``
-    to ``TFRA_TPU_CKPT_BUFFER_KEYS``. Returns the table's directory."""
+    to ``TFRA_TPU_CKPT_BUFFER_KEYS``. ``tier``: a spill tier (or a bare
+    host store) whose rows are written beside the table's
+    (:func:`save_tier`), so a hybrid table's checkpoint loses nothing.
+    Returns the table's directory."""
     directory = _resolve_dir(directory)
     buffer_size = _resolve_buffer(buffer_size)
     var = _var_of(var_or_sharded)
-    _no_tier(tier)
     vdir = os.path.join(_de_dir(directory, global_step), var.name)
     os.makedirs(vdir, exist_ok=True)
 
@@ -220,6 +309,11 @@ def save_dynamic_embedding(var_or_sharded, state,
         for s in slot_names:
             _dump_rows(prefix + f"-slots.{s}", slots[s], buffer_size)
 
+    tier_rows = 0
+    if tier is not None:
+        tier_rows = save_tier(tier, var, vdir, proc_size=proc_size,
+                              proc_rank=proc_rank, buffer_size=buffer_size)
+
     meta = {
         "name": var.name,
         "dim": var.dim,
@@ -231,7 +325,7 @@ def save_dynamic_embedding(var_or_sharded, state,
         "num_shards": (var_or_sharded.num_shards if isinstance(
             var_or_sharded, ShardedVariable) else 1),
         "live_keys_this_rank": int(total_live),
-        "tier_keys_this_rank": 0,
+        "tier_keys_this_rank": tier_rows,
         "proc_rank": proc_rank,
         "proc_size": proc_size,
     }
@@ -247,7 +341,7 @@ def _scan_shard_files(vdir: str, var: Variable):
     key_files = sorted(glob.glob(os.path.join(vdir, "*-keys")))
     if not key_files:
         raise FileNotFoundError(f"no KV shard files under {vdir}")
-    kdt = _np_dtype(var.key_dtype)
+    kdt = hashtable.np_dtype(var.key_dtype)
     prefixes = [kf[: -len("-keys")] for kf in key_files]
     rows = [os.path.getsize(kf) // kdt.itemsize for kf in key_files]
     slot_sets = [{sf.rsplit("-slots.", 1)[1]
@@ -262,9 +356,9 @@ class _ShardReader:
 
     def __init__(self, prefix: str, var: Variable, slot_names):
         self.var = var
-        self.kdt = _np_dtype(var.key_dtype)
-        self.vdt = _np_dtype(var.value_dtype)
-        self.sdt = _np_dtype(var.spec.score_dtype)
+        self.kdt = hashtable.np_dtype(var.key_dtype)
+        self.vdt = hashtable.np_dtype(var.value_dtype)
+        self.sdt = hashtable.np_dtype(var.spec.score_dtype)
         self.remaining = os.path.getsize(prefix + "-keys") // (
             self.kdt.itemsize)
         self._kf = open(prefix + "-keys", "rb")
@@ -281,16 +375,16 @@ class _ShardReader:
         d = var.dim
         m = min(m, self.remaining)
         self.remaining -= m
-        k = _from_words(np.fromfile(self._kf, dtype=self.kdt, count=m),
-                        var.key_dtype)
-        v = _from_words(np.fromfile(self._vf, dtype=self.vdt,
-                                    count=m * d).reshape(m, d),
-                        var.value_dtype)
+        k = hashtable.from_words(
+            np.fromfile(self._kf, dtype=self.kdt, count=m), var.key_dtype)
+        v = hashtable.from_words(
+            np.fromfile(self._vf, dtype=self.vdt, count=m * d).reshape(m, d),
+            var.value_dtype)
         sc = (np.fromfile(self._sf, dtype=self.sdt, count=m)
               if self._sf is not None else np.ones((m,), self.sdt))
-        sl = {nm: _from_words(np.fromfile(f, dtype=self.vdt,
-                                          count=m * d).reshape(m, d),
-                              var.value_dtype)
+        sl = {nm: hashtable.from_words(
+                  np.fromfile(f, dtype=self.vdt, count=m * d).reshape(m, d),
+                  var.value_dtype)
               for nm, f in self._slfs.items()}
         return k, v, torch.from_numpy(sc), sl
 
@@ -414,20 +508,25 @@ def load_dynamic_embedding(var_or_sharded, state,
     in ``buffer_size``-row chunks. Elastic: every saved shard file set is
     read, whatever the saved shard count and rank layout; a sharded table
     whose shard count matches the files' takes the direct per-shard path.
-    A checkpoint's spill-tier rows (``tier/``) are merged into the table,
-    with the JAX package's warning that rows beyond its capacity are
-    dropped."""
+    ``tier``: the checkpoint's spill-tier rows (``tier/``) are read into
+    its store (:func:`load_tier`); with ``tier=None`` they are merged into
+    the table, with the JAX package's warning that rows beyond its
+    capacity are dropped."""
     global LAST_RESTORE_USED_DIRECT
     directory = _resolve_dir(directory)
     buffer_size = _resolve_buffer(buffer_size)
     var = _var_of(var_or_sharded)
-    _no_tier(tier)
     vdir = os.path.join(_de_dir(directory, global_step), var.name)
     prefixes, slot_names, rows_per = _scan_shard_files(vdir, var)
 
     merge_tier = False
     tdir = os.path.join(vdir, "tier")
-    if os.path.isdir(tdir):
+    if tier is not None:
+        load_tier(tier, var, vdir,
+                  num_shards=(var_or_sharded.num_shards if isinstance(
+                      var_or_sharded, ShardedVariable) else 1),
+                  buffer_size=buffer_size)
+    elif os.path.isdir(tdir):
         _, t_slots, t_rows_per = _scan_shard_files(tdir, var)
         if sum(t_rows_per):
             warnings.warn(
@@ -529,7 +628,7 @@ def _unflatten(obj, leaves):
 
 
 def _leaf_like(cur: torch.Tensor, saved: np.ndarray) -> torch.Tensor:
-    return _from_words(np.array(saved), cur.dtype).to(cur.device)
+    return hashtable.from_words(np.array(saved), cur.dtype).to(cur.device)
 
 
 class DECheckpoint:
@@ -543,8 +642,8 @@ class DECheckpoint:
         restored = ckpt.restore(dir, state={...})   # the same keys
 
     A Variable or ShardedVariable entry is a table; a ``(table, tier)``
-    pair a table with its spill tier (which waits for the port of
-    ops/spill.py); anything else a dense entry, whose object is unused
+    pair a table with its spill tier, checkpointed and restored with it;
+    anything else a dense entry, whose object is unused
     (the state holds it)."""
 
     def __init__(self, **objects):
@@ -578,7 +677,7 @@ class DECheckpoint:
                 structure, leaves = _flatten(state[name])
                 flat[f"{name}::treedef"] = np.asarray(structure)
                 for i, leaf in enumerate(leaves):
-                    flat[f"{name}::{i}"] = _host_words(leaf.detach())
+                    flat[f"{name}::{i}"] = hashtable.host_words(leaf.detach())
         if proc_rank == 0 and flat:
             suffix = "" if step is None else f"-{int(step)}"
             path = os.path.join(directory, f"dense{suffix}.npz")
@@ -634,7 +733,7 @@ class DECheckpoint:
                         f"{n_saved}")
                 saved_leaves = iter(
                     dense[f"{name}::{i}"] if f"{name}::{i}" in dense.files
-                    else _host_words(leaf.detach())
+                    else hashtable.host_words(leaf.detach())
                     for i, leaf in enumerate(leaves))
                 out[name] = _unflatten(state[name], saved_leaves)
 

@@ -1,0 +1,4 @@
+"""Utilities of the port: environment configuration and metrics."""
+
+from recommenders_addons_tpu_torch.utils.config import env_config  # noqa: F401
+from recommenders_addons_tpu_torch.utils import metrics  # noqa: F401

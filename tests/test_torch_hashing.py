@@ -126,3 +126,17 @@ def test_split_int_matches_split_key():
     for k in (0, -1, th.EMPTY_KEY, th.EMPTY_KEY32, (1 << 63) - 1, 12345):
         lo, hi = tht.split_key(torch.tensor([k], dtype=torch.int64))
         assert tht._split_int(k) == (int(lo), int(hi))
+
+
+def test_native_string_hash_matches_numpy_and_jax():
+    """``hash_strings(algo="fnv1a")`` runs the native batch hasher: bit
+    for bit its plain version (the numpy ``_fnv1a64_vectorized``) and the
+    JAX package's, on empty, multi-byte and long strings, over a batch
+    large enough to be split across threads."""
+    strings = (["", "a", "hello", "ünïcödé", "x" * 1000, b"\x00\xff"]
+               + [f"feature_{i}" for i in range(20_000)])
+    got = th.hash_strings(strings)
+    np.testing.assert_array_equal(got, th._native_hash(strings))
+    np.testing.assert_array_equal(got, th._fnv1a64_vectorized(strings))
+    np.testing.assert_array_equal(got, jh.hash_strings(strings))
+    assert (got != th.EMPTY_KEY).all()

@@ -208,9 +208,12 @@ def test_elastic_restore_of_a_four_shard_jax_checkpoint(tmp_path):
     with pytest.warns(UserWarning, match="spill-tier rows"):
         got = tckpt.load_dynamic_embedding(tv, tv.init(), str(tmp_path))
     assert int(tv.size(got)) == 302
-    with pytest.raises(NotImplementedError):
-        tckpt.load_dynamic_embedding(tv, tv.init(), str(tmp_path),
-                                     tier=object())
+    # given a tier, its rows go to the tier's store instead
+    tier = tde.SpillTier(tv, store=tde.HostKVStore(DIM))
+    got = tckpt.load_dynamic_embedding(tv, tv.init(), str(tmp_path),
+                                       tier=tier)
+    assert int(tv.size(got)) == 300
+    assert sorted(tier.store.export_all()[0].tolist()) == [5, 6]
 
 
 def _dlrm_run(seed=0):

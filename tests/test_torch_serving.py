@@ -163,9 +163,16 @@ def test_token_auth_and_unported_options(trained, export_dir):
         assert found.all()
         with pytest.raises(RuntimeError):
             cli.lookup("nope", [1])
-    with pytest.raises(NotImplementedError):
-        tserver.EmbeddingServer({"emb": tft}, tiers={"emb": object()},
-                                port=0)
+    # a spill tier answers the table's misses where it holds them
+    tier = tde.SpillTier(tde.Variable(name="emb", dim=DIM, device="cpu"),
+                         store=tde.HostKVStore(DIM))
+    tier.store.put([99991], np.full((1, DIM), 2.5, np.float32))
+    with tserver.EmbeddingServer({"emb": tft}, tiers={"emb": tier},
+                                 port=0) as srv:
+        vals, found = tserver.EmbeddingClient(srv.host, srv.port).lookup(
+            "emb", [99991, 99992, int(trained[2][0])])
+    assert found.tolist() == [True, False, True]
+    assert (vals[0] == 2.5).all() and (vals[1] == 0).all()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tserver.serve_directory(export_dir, port=0)
