@@ -13,8 +13,10 @@ seq-and-dense) and the sparse API itself, runs the table lifecycle
 sharded table (parallel/: the DLRM on 4 logical shards of the card, the
 NCCL process-group exchange, sharded checkpoints), the spill tier
 (DLRM's table under a HybridTable with twice its capacity in keys, its
-host store, checkpoints, tiered serving and the networked shared tier)
-and the kernel tools, checking each result against a reference.
+host store, checkpoints, tiered serving and the networked shared tier),
+the f64, int64 and bool tables, the input pipeline with the examples
+built on it, and the kernel tools, checking each result against a
+reference.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -208,19 +210,55 @@ Phases (any failure exits non-zero):
    beside its plain version (and torch.bincount); then each tool's main()
    (ns/row of its five variants; ns/key of its four).
 
+12. The 64-bit and bool value dtypes at the table step's width (dim 64,
+   2Mi slots): an f64 table with its Adam slots (rows of 2 KiB), an int64
+   table (1 KiB) and a bool table (128 B). (a) Each filled with 1Mi keys
+   in blocks of 65,536 (size 1Mi); (b) every key and 65,536 misses
+   looked up, each row bit-equal to the values put, misses zero; 64-bit
+   rows through row_scatter and row_gather (a view of two words an
+   element, ch doubled), bool rows by torch indexing (no kernel). (c)
+   10 Adam steps of 65,536 zipf(1.2) ids (a tenth new keys) on the f64
+   table (unfused: row_gather, row_scatter, no fused_update_scatter)
+   and on an f32 table of the same shape (fused), ms/step of both. (d)
+   A 64Ki-slot f64 table, normal(0.05) initial rows, 5 Adam steps of
+   8,192 ids on the card and on the CPU: key planes and scores
+   bit-exact, rows within rtol 1e-12. (e) Each table saved from the
+   card and from a CPU copy, the files byte-identical, and restored on
+   the card, per key bit-equal. (f) row_gather and row_scatter on the
+   last f64 step's own operands against their plain versions,
+   bit-exact, timed beside them, the library call and the bytes bound.
+13. The input pipeline: a Criteo-format file of 40 x 4,096 lines (about
+   30 MB, a learnable hot token) from the seed; CriteoTSVReader's rows/s
+   alone; examples/dlrm_train.main at DLRMConfig() width (dim 64, batch
+   4096) for 30 steps from the file through prefetch (row_gather and
+   fused_update_scatter must launch, the final loss finite), beside the
+   same on the synthetic batches: ms/step of both from the examples/s
+   line; the same example at the JAX test's size (2,000 lines, 60
+   steps, batch 256, dim 8): AUC above 0.8; examples/movielens_train on
+   4,000 fabricated ratings: eval MSE below 0.8; utils.profiling.trace
+   around 3 reader-fed DLRM steps: the Chrome trace holds row_gather's
+   and the fused apply's kernels and the annotate range; StepTimer's
+   mean beside CUDA events of 5 more steps.
+14. The other seven examples' main() at their own defaults on the card:
+   each returns 0 and prints its JAX counterpart's result lines.
+
 Each main path (serving, DLRM training, table step, the five parts of
 the training surface, the DCN, the sparse API, the learning bars, the
 lifecycle, sharded training, the sharded checkpoint, the six parts of
-the spill phase, dma_bench, ab_kernel_cost, ab_radix_plan) is
-driven with the kernels' launch counts set to 0 just before it and read
-just after; a kernel of the path that was not launched fails the run.
+the spill phase, the dtypes phase's fills, lookups, f64 training and
+checkpoints, the data phase's five runs, each example, dma_bench,
+ab_kernel_cost, ab_radix_plan) is driven with the kernels' launch
+counts set to 0 just before it and read just after; a kernel of the
+path that was not launched fails the run.
 
 Output: the card's name and power limit on a line of its own,
 ``{"serving": ...}``, ``{"training": ...}``,
 ``{"training_surface": ...}``, ``{"models": ...}``, ``{"lifecycle": ...}``,
-``{"sharded": ...}``, ``{"spill": ...}``, ``{"dma_bench": ...}``,
+``{"sharded": ...}``, ``{"spill": ...}``, ``{"dtypes": ...}``,
+``{"data": ...}``, ``{"examples": ...}``, ``{"dma_bench": ...}``,
 ``{"ab_tools": ...}``, ``{"kernels": [...]}`` and last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each phase's own seconds are in its
+line (``phase_s``).
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 """
@@ -302,6 +340,19 @@ SPILL_HIGH, SPILL_LOW = 0.95, 0.80
 SPILL_REQUESTS, SPILL_TIMED = 8, 16
 SPILL_NARROW = (8, 1 << 12, 1 << 14)
 SPILL_REMOTE_CAP, SPILL_REMOTE_N = 1 << 18, 65536
+# the dtypes phase: the table step's width (dim 64, 2Mi slots, Adam) as
+# f64 (rows of 2 KiB), int64 (1 KiB) and bool (128 B) tables filled with
+# DT_KEYS keys in blocks of DT_BLOCK; DT_STEPS training steps; the
+# narrow f64 table trained on the card and the CPU, rows within
+# DT_NARROW_RTOL (the combine's additions may run in another order)
+DT_CAP, DT_DIM, DT_KEYS, DT_BLOCK = TABLE_CAP, 64, 1 << 20, 65536
+DT_STEPS = 10
+DT_NARROW_CAP, DT_NARROW_STEPS, DT_NARROW_BATCH = 1 << 16, 5, 8192
+DT_NARROW_RTOL = 1e-12
+# the data phase: a Criteo-format file of DATA_LINES lines (about 30 MB),
+# the reader-fed full-width DLRM's steps, the steps traced and timed
+DATA_LINES, DATA_STEPS = 40 * 4096, 30
+DATA_PROFILE_STEPS, DATA_TIMER_STEPS = 3, 5
 
 _F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per updated column of Adagrad (ops/optimizer.py:
@@ -3162,6 +3213,631 @@ def ab_tools_phase(torch, cuda_ops, dev, gen, rate, card):
     return results, summary
 
 
+# ---------------------------------------------------------------------------
+# 12. the 64-bit and bool value dtypes
+# ---------------------------------------------------------------------------
+
+
+def _wide_bits(torch, t):
+    """A tensor's bits as a comparable tensor: 64-bit values as int64,
+    bool as itself."""
+    return t.view(torch.int64) if t.element_size() == 8 else t
+
+
+def _wide_values(torch, dt, n, dim, gen, dev):
+    """``[n, dim]`` random values of ``dt`` on ``dev``: float normals,
+    int64 words over most of the range, bools."""
+    if dt.is_floating_point:
+        return torch.randn((n, dim), dtype=dt, device=dev, generator=gen)
+    if dt == torch.int64:
+        return torch.randint(-(1 << 62), 1 << 62, (n, dim), dtype=dt,
+                             device=dev, generator=gen)
+    return torch.randint(0, 2, (n, dim), device=dev, generator=gen).bool()
+
+
+def _wide_per_key(torch, var, st):
+    """Live keys sorted, with their scores and used columns (value and
+    slot rows) as bits."""
+    from recommenders_addons_tpu_torch.ops import hashtable
+
+    idx = torch.nonzero(hashtable.occupancy_mask(var.spec, st)).reshape(-1)
+    keys, order = torch.sort(st.keys[idx])
+    w = st.dim * (1 + len(st.slot_names))
+    rows = st.rows_logical[idx, :w][order].contiguous()
+    return {"keys": keys, "scores": st.scores[idx][order],
+            "rows": _wide_bits(torch, rows)}
+
+
+def _dtypes_fill(torch, cuda_ops, de, dev, gen, seed):
+    """(a) The three tables (and the f32 table of (c)) filled with
+    DT_KEYS keys in blocks of DT_BLOCK; (b) every key and DT_BLOCK
+    misses looked up, each row bit-equal to the values put."""
+    rng = np.random.default_rng(seed + 12)
+    keys_np = rng.choice(1 << 40, size=DT_KEYS + DT_BLOCK, replace=False)
+    keys = torch.from_numpy(keys_np.astype(np.int64)).to(dev)
+    misses, keys = keys[DT_KEYS:], keys[:DT_KEYS]
+    tables, out = {}, {}
+    for name, dt in (("float64", torch.float64), ("int64", torch.int64),
+                     ("bool", torch.bool), ("float32", torch.float32)):
+        init = (de.initializers.normal(0.05) if dt.is_floating_point
+                else None)
+        var = de.Variable(name=f"dtypes_{name}", dim=DT_DIM,
+                          init_capacity=DT_CAP, value_dtype=dt,
+                          initializer=init, device=dev)
+        st = var.init()
+        if dt.is_floating_point:  # the table step's rows: value, m, v
+            st = de.create_slots(var, st, de.Adam(0.001))
+        vals = _wide_values(torch, dt, DT_KEYS, DT_DIM, gen, dev)
+        cuda_ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for off in range(0, DT_KEYS, DT_BLOCK):
+            st = var.upsert(st, keys[off:off + DT_BLOCK],
+                            vals[off:off + DT_BLOCK])
+        torch.cuda.synchronize()
+        fill_ms = (time.perf_counter() - t0) * 1e3
+        fill_launches = {k.name: k.launches for k in cuda_ops.KERNELS}
+        size = int(var.size(st))
+        if size != DT_KEYS:
+            raise AssertionError(f"dtypes {name}: {size} keys after the "
+                                 f"fill, not {DT_KEYS}")
+        # (b) every key, then the misses: hits equal the values put,
+        # misses the default row (zeros), bit for bit
+        cuda_ops.reset_launches()
+        t0 = time.perf_counter()
+        found_all = True
+        for off in range(0, DT_KEYS, DT_BLOCK):
+            got, found = var.lookup(st, keys[off:off + DT_BLOCK],
+                                    return_exists=True)
+            found_all &= bool(found.all())
+            if not torch.equal(_wide_bits(torch, got),
+                               _wide_bits(torch, vals[off:off + DT_BLOCK])):
+                raise AssertionError(f"dtypes {name}: looked-up rows at "
+                                     f"{off} differ from the values put")
+        got, found = var.lookup(st, misses, return_exists=True)
+        torch.cuda.synchronize()
+        lookup_ms = (time.perf_counter() - t0) * 1e3
+        if not found_all or bool(found.any()) or bool(got.to(
+                torch.float32).any()):
+            raise AssertionError(f"dtypes {name}: found flags or the "
+                                 f"default rows are wrong")
+        lookup_launches = {k.name: k.launches for k in cuda_ops.KERNELS}
+        # 64-bit rows go through the row kernels, bool rows by indexing
+        kernel_rows = st.rows.element_size() != 1
+        for part, n, kname in (("fill", fill_launches, "row_scatter"),
+                               ("lookup", lookup_launches, "row_gather")):
+            if bool(n[kname]) != kernel_rows:
+                raise AssertionError(f"dtypes {name} {part}: {kname} "
+                                     f"launched {n[kname]} times")
+        tables[name] = (var, st)
+        del vals
+        out[name] = {"row_bytes": st.chunks * LANES * st.rows.element_size(),
+                     "table_gb": st.rows.numel() * st.rows.element_size()
+                     / 1e9,
+                     "fill_ms": fill_ms, "lookup_ms": lookup_ms,
+                     "launches_fill": fill_launches,
+                     "launches_lookup": lookup_launches}
+    return tables, keys, out
+
+
+def _dtypes_train(torch, cuda_ops, de, tables, keys, dev, gen, seed):
+    """(c) DT_STEPS Adam steps of DT_BLOCK zipf(1.2) ids (one tenth new
+    keys) on the f64 table and on the f32 one; the f64 step's own row
+    gathers and scatters recorded for (f)."""
+    from recommenders_addons_tpu_torch.tools import fused_sweep as fs
+
+    rng = np.random.default_rng(seed + 13)
+    perm = torch.from_numpy(rng.permutation(DT_KEYS)).to(dev)
+    batches = []
+    for t in range(DT_STEPS):
+        z = torch.from_numpy((rng.zipf(1.2, DT_BLOCK) - 1) % DT_KEYS).to(dev)
+        ids = keys[perm[z]]
+        fresh = torch.from_numpy(rng.integers(
+            1 << 41, 1 << 42, DT_BLOCK // 10)).to(dev)
+        ids[: DT_BLOCK // 10] = fresh
+        g = torch.randn((DT_BLOCK, DT_DIM), dtype=torch.float64,
+                        device=dev, generator=gen)
+        batches.append((ids, g))
+    opt = de.Adam(0.001)
+    out, own = {}, {}
+    for name in ("float64", "float32"):
+        var, st = tables[name]
+        cuda_ops.reset_launches()
+        times = []
+        for t, (ids, g) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+
+            def one_step(st=st, ids=ids, g=g, t=t):
+                emb, ctx = var.embedding_lookup(st, ids, step=t + 1)
+                return var.apply_gradients(st, ctx, g.to(emb.dtype), opt,
+                                           step=t)
+
+            if name == "float64" and t == DT_STEPS - 1:
+                # (f): the last step's own operands of kernels 1 and 2
+                res = []
+                own["gather"] = fs.record_calls(
+                    lambda: own.__setitem__("scatter", fs.record_calls(
+                        lambda: res.append(one_step()),
+                        "scatter_rows_set_2d", limit=1)),
+                    "gather_rows_2d", limit=1)
+                st = res[0]
+            else:
+                st = one_step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = _launched(cuda_ops, name, (
+            ("row_gather", "row_scatter") if name == "float64"
+            else ("row_gather", "fused_update_scatter")), "dtypes train")
+        if name == "float64" and launches["fused_update_scatter"]:
+            raise AssertionError("an f64 apply launched the fused kernel")
+        vals = st.rows_logical[:, :DT_DIM]
+        if not bool(torch.isfinite(vals).all()):
+            raise AssertionError(f"dtypes train {name}: rows not finite")
+        tables[name] = (var, st)
+        out[name] = {"ms_per_step": times, "median_ms": float(
+            np.median(times[1:])), "launches": launches,
+            "size": int(var.size(st))}
+    out["f64_over_f32"] = (out["float64"]["median_ms"]
+                           / out["float32"]["median_ms"])
+    return out, own
+
+
+def _dtypes_narrow(torch, de, dev, seed):
+    """(d) A DT_NARROW_CAP-slot f64 table (dim DT_DIM, Adam, normal
+    initial rows) trains DT_NARROW_STEPS steps on the card and on the
+    CPU: key planes and scores bit-exact, rows within DT_NARROW_RTOL."""
+    rng = np.random.default_rng(seed + 14)
+    batches = [(rng.integers(1, 40_000, DT_NARROW_BATCH).astype(np.int64),
+                rng.standard_normal((DT_NARROW_BATCH, DT_DIM)))
+               for _ in range(DT_NARROW_STEPS)]
+    runs = {}
+    for where in ("cpu", dev):
+        var = de.Variable(name="dtypes_narrow", dim=DT_DIM,
+                          init_capacity=DT_NARROW_CAP,
+                          value_dtype=torch.float64,
+                          initializer=de.initializers.normal(0.05),
+                          device=where)
+        opt = de.Adam(0.01)
+        st = de.create_slots(var, var.init(), opt)
+        for t, (ids, g) in enumerate(batches):
+            emb, ctx = var.embedding_lookup(
+                st, torch.from_numpy(ids).to(where), step=t + 1)
+            st = var.apply_gradients(st, ctx, torch.from_numpy(g).to(where),
+                                     opt, step=t)
+        runs[str(where)] = st
+    c, g = runs["cpu"], runs[str(dev)]
+    for f in ("key_lo", "key_hi", "scores"):
+        if not torch.equal(getattr(g, f).cpu(), getattr(c, f)):
+            raise AssertionError(f"dtypes narrow {f}: card and CPU differ")
+    got, want = g.rows_logical.cpu(), c.rows_logical
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=DT_NARROW_RTOL, atol=0):
+        raise AssertionError(f"dtypes narrow rows differ by {err}")
+    return {"cap": DT_NARROW_CAP, "steps": DT_NARROW_STEPS,
+            "batch": DT_NARROW_BATCH, "rows_max_abs_err": err,
+            "rows_bit_equal": bool(torch.equal(_wide_bits(torch, got),
+                                               _wide_bits(torch, want))),
+            "rtol": DT_NARROW_RTOL}
+
+
+def _dtypes_checkpoint(torch, cuda_ops, tables, tmp):
+    """(e) Each table saved from the card and from a CPU copy (files
+    byte-identical) and restored on the card (per key bit-equal)."""
+    import dataclasses as dc
+    import filecmp
+    import os
+
+    from recommenders_addons_tpu_torch.ops import hashtable
+    from recommenders_addons_tpu_torch.train import checkpoint as ckpt_lib
+
+    out = {}
+    cuda_ops.reset_launches()
+    for name in ("float64", "int64", "bool"):
+        var, st = tables[name]
+        card_dir = os.path.join(tmp, name, "card")
+        vdir, save_ms = _timed(torch, lambda: ckpt_lib.save_dynamic_embedding(
+            var, st, card_dir))
+        cpu_var = dc.replace(var, device="cpu")
+        cpu_st = hashtable.TableState(
+            key_lo=st.key_lo.cpu(), key_hi=st.key_hi.cpu(),
+            rows=st.rows.cpu(), scores=st.scores.cpu(), dim=st.dim,
+            slot_names=st.slot_names, slot_inits=st.slot_inits,
+            key_dtype_name=st.key_dtype_name,
+            value_dtype_name=st.value_dtype_name)
+        cpu_vdir = ckpt_lib.save_dynamic_embedding(
+            cpu_var, cpu_st, os.path.join(tmp, name, "cpu"))
+        del cpu_st
+        files = sorted(f for f in os.listdir(vdir) if not f.endswith(".json"))
+        if files != sorted(f for f in os.listdir(cpu_vdir)
+                           if not f.endswith(".json")):
+            raise AssertionError(f"dtypes {name}: card and CPU wrote "
+                                 f"different files")
+        for f in files:
+            if not filecmp.cmp(os.path.join(vdir, f),
+                               os.path.join(cpu_vdir, f), shallow=False):
+                raise AssertionError(f"dtypes {name}: {f} differs, card "
+                                     f"against CPU")
+        fresh = var.init()
+        if st.slot_names:
+            for nm in st.slot_names:
+                fresh = hashtable.with_slot(fresh, nm, st.slot_init(nm))
+        restored, restore_ms = _timed(
+            torch, lambda: ckpt_lib.load_dynamic_embedding(var, fresh,
+                                                           card_dir))
+        a, b = _wide_per_key(torch, var, st), _wide_per_key(torch, var,
+                                                            restored)
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"dtypes {name}: restored {k} differ "
+                                     f"key by key")
+        out[name] = {"keys": int(a["keys"].numel()), "save_ms": save_ms,
+                     "restore_ms": restore_ms,
+                     "gb": _dir_bytes(card_dir) / 1e9, "files": len(files)}
+        del restored, fresh
+    out["launches"] = _launched(cuda_ops, "checkpoint",
+                                ("row_gather", "row_scatter"), "dtypes")
+    return out
+
+
+def _dtypes_own_calls(torch, cuda_ops, own, rate):
+    """(f) Kernels 1 and 2 on an f64 step's own operands (2 KiB rows, the
+    64-bit view doubling ch) against their plain versions, bit-exact,
+    and timed beside them, the library call and the bytes bound."""
+    res = {}
+    for kind in ("gather", "scatter"):
+        if not own.get(kind):
+            raise AssertionError(f"the f64 step made no row {kind}")
+        a = own[kind][0]
+        table, ch = a["table2d"], a["ch"]
+        idx = a["idx"].reshape(-1).to(torch.int32)
+        n = idx.numel()
+        row_b = ch * LANES * table.element_size()
+        rows = table.view(-1, ch * LANES)
+        nrows = rows.shape[0]
+        valid = (idx >= 0) & (idx < nrows if kind == "gather"
+                              else idx < a["cap"])
+        if kind == "gather":
+            vc = a["vc"] or ch
+            fn = lambda: cuda_ops.gather_rows_2d(**a)  # noqa: E731
+            plain = lambda: cuda_ops.gather_rows_2d_plain(**a)  # noqa: E731
+            err = int((_wide_bits(torch, fn())
+                       != _wide_bits(torch, plain())).sum())
+            safe = idx.clamp(0, nrows - 1).long()
+            lib = lambda: torch.index_select(rows, 0, safe)  # noqa: E731
+            read = int(torch.unique(safe).numel())
+            nbytes = n * 4 + (read + n) * vc * LANES * table.element_size()
+        else:
+            got = table.clone()
+            cuda_ops.scatter_rows_set_2d(**dict(a, table2d=got))
+            want = table.clone()
+            cuda_ops.scatter_rows_set_2d_plain(**dict(a, table2d=want))
+            cap_rows = a["cap"] * ch
+            err = int((_wide_bits(torch, got[:cap_rows])
+                       != _wide_bits(torch, want[:cap_rows])).sum())
+            del got, want
+            src = a["rows"].reshape(n, -1)
+            safe = torch.where(valid, idx, a["cap"]).long()
+            fn = lambda: cuda_ops.scatter_rows_set_2d(**a)  # noqa: E731
+            plain = lambda: cuda_ops.scatter_rows_set_2d_plain(  # noqa
+                **a)
+            lib = lambda: rows.index_copy_(0, safe, src)  # noqa: E731
+            # kernel 2's bound as in phase 1: every input row read, each
+            # row written once (the trash row among them)
+            written = int(torch.unique(safe).numel())
+            nbytes = n * 4 + (n + written) * row_b
+        if err:
+            raise AssertionError(f"row_{kind} on an f64 step's operands: "
+                                 f"{err} words apart")
+        res[kind] = {"n": n, "row_bytes": row_b, "ch": ch,
+                     "trash_share": 1.0 - float(valid.float().mean()),
+                     "max_abs_err": err, "ms": _time_ms(torch, fn, 20),
+                     "plain_ms": _time_ms(torch, plain, 5),
+                     "library_ms": _time_ms(torch, lib, 20),
+                     "bound_ms": nbytes / rate * 1e3, "bytes": nbytes}
+        torch.cuda.empty_cache()
+    return res
+
+
+def dtypes_phase(torch, cuda_ops, dev, seed, rate):
+    """Phase 12: the 64-bit and bool value dtypes at the table step's
+    width (module docstring)."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    tables, keys, out = _dtypes_fill(torch, cuda_ops, de, dev, gen, seed)
+    out["train"], own = _dtypes_train(torch, cuda_ops, de, tables, keys,
+                                      dev, gen, seed)
+    del tables["float32"]
+    torch.cuda.empty_cache()
+    out["own_calls"] = _dtypes_own_calls(torch, cuda_ops, own, rate)
+    del own
+    torch.cuda.empty_cache()
+    out["narrow"] = _dtypes_narrow(torch, de, dev, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["checkpoint"] = _dtypes_checkpoint(torch, cuda_ops, tables, tmp)
+    del tables
+    torch.cuda.empty_cache()
+    out["launches"] = {
+        **{f"dtypes_fill_{n}": out[n]["launches_fill"]
+           for n in ("float64", "int64", "bool")},
+        **{f"dtypes_lookup_{n}": out[n]["launches_lookup"]
+           for n in ("float64", "int64", "bool")},
+        "dtypes_train_float64": out["train"]["float64"]["launches"],
+        "dtypes_checkpoint": out["checkpoint"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 13. the input pipeline, profiling
+# ---------------------------------------------------------------------------
+
+
+def write_criteo_tsv(path, n, seed):
+    """``n`` Criteo-format lines whose label follows a hot categorical
+    token 90% of the time (tests/test_data.py's learnable file)."""
+    rng = np.random.default_rng(seed)
+    hot = rng.integers(0, 2, n)
+    label = np.where(rng.random(n) < 0.9, hot, 1 - hot)
+    dense = rng.integers(0, 100, (n, 13)).astype(str)
+    cats = np.char.add("v", rng.integers(0, 50, (n, 26)).astype(str))
+    cats[:, 0] = np.char.add("hot", hot.astype(str))
+    rows = np.concatenate([label.astype(str)[:, None], dense, cats], axis=1)
+    with open(path, "w") as f:
+        f.write("\n".join("\t".join(r) for r in rows.tolist()) + "\n")
+
+
+def write_movielens_ratings(path, n, seed):
+    """``n`` ratings with a latent structure (user x movie parity), as
+    tests/test_data.py writes them."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(1, 200, n)
+    m = rng.integers(1, 300, n)
+    r = np.where((u + m) % 2 == 0, 4.0, 2.0)
+    with open(path, "w") as f:
+        f.write("".join(f"{a}::{b}::{c}::978300760\n"
+                        for a, b, c in zip(u, m, r)))
+
+
+def _run_main(main, argv):
+    """``main(argv)`` with its standard output captured: ``(rc, text,
+    seconds)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def _last_number(text, marker):
+    line = [ln for ln in text.splitlines() if marker in ln][-1]
+    return float(line.rsplit(" ", 1)[1])
+
+
+def _examples_per_s(text) -> float:
+    line = [ln for ln in text.splitlines() if "examples/s" in ln][-1]
+    return float(line.split("(")[1].split()[0].replace(",", ""))
+
+
+def _dlrm_example(torch, cuda_ops, argv, what):
+    """dlrm_train.main(argv) with its final loss read from train_loop's
+    report; returns its output, the loss and the launch counts."""
+    from recommenders_addons_tpu_torch.examples import dlrm_train
+
+    real, seen = dlrm_train.train_loop, {}
+
+    def recording(*a, **kw):
+        state, report = real(*a, **kw)
+        seen["loss"] = report.last_metrics["loss"]
+        return state, report
+
+    cuda_ops.reset_launches()
+    dlrm_train.train_loop = recording
+    try:
+        rc, text, secs = _run_main(dlrm_train.main, argv)
+    finally:
+        dlrm_train.train_loop = real
+    launches = _launched(cuda_ops, what, ("row_gather",
+                                          "fused_update_scatter"), "data")
+    if rc != 0 or not math.isfinite(seen.get("loss", float("nan"))):
+        raise AssertionError(f"data {what}: rc {rc}, loss "
+                             f"{seen.get('loss')}\n{text[-2000:]}")
+    auc = _last_number(text, "AUC (")
+    return {"rc": rc, "s": secs, "loss": seen["loss"], "auc": auc,
+            "examples_per_s": _examples_per_s(text), "launches": launches,
+            "lines": [ln for ln in text.splitlines()
+                      if "steps in" in ln or ln.startswith("AUC")]}
+
+
+def _profile_dlrm(torch, cuda_ops, dev, path, tmp):
+    """profiling.trace around DATA_PROFILE_STEPS full-width DLRM steps fed
+    by the reader: the trace holds row_gather, the fused apply and the
+    annotate range; then StepTimer beside CUDA events on more steps."""
+    import itertools
+    import json as _json
+    import os
+
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.data import CriteoTSVReader, prefetch
+    from recommenders_addons_tpu_torch.models import dlrm
+    from recommenders_addons_tpu_torch.utils import profiling
+
+    model = dlrm.DLRM(dlrm.DLRMConfig(), device=dev)
+    st = model.init(0)
+    st.table = de.create_slots(model.var, st.table, model.opt)
+    step, tx = model.make_train_step()
+    opt = tx.init(list(st.dense.parameters()))
+    # every batch read first: the reader thread, which holds the
+    # interpreter lock while it parses, has stopped before the steps
+    n = 2 + DATA_PROFILE_STEPS + DATA_TIMER_STEPS
+    batches = list(prefetch(itertools.islice(CriteoTSVReader(
+        path, batch_size=DLRM_BATCH, repeat=True), n), device=dev))
+    for b in batches[:2]:  # warm
+        st, opt, loss = step(st, opt, b)
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    with profiling.trace(tmp) as prof:
+        for b in batches[2:2 + DATA_PROFILE_STEPS]:
+            with profiling.annotate("dlrm_train_step"):
+                st, opt, loss = step(st, opt, b)
+        torch.cuda.synchronize()
+    launches = _launched(cuda_ops, "profile", ("row_gather",
+                                               "fused_update_scatter"),
+                         "data")
+    with open(prof.trace_path) as f:
+        names = {e.get("name", "") for e in _json.load(f)["traceEvents"]}
+    want = {"row_gather": "row_gather_kernel",
+            "fused_update_scatter": "fused_kernel",
+            "annotate": "dlrm_train_step"}
+    hits = {k: any(v in nm for nm in names) for k, v in want.items()}
+    if not all(hits.values()):
+        raise AssertionError(f"the profiler trace lacks {hits}")
+    timer = profiling.StepTimer()
+    ev = []
+    torch.cuda.synchronize()
+    for b in batches[2 + DATA_PROFILE_STEPS:]:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        timer.start()
+        e0.record()
+        st, opt, loss = step(st, opt, b)
+        e1.record()
+        timer.stop(loss)
+        ev.append(e0.elapsed_time(e1))
+    return {"trace_mb": os.path.getsize(prof.trace_path) / 1e6,
+            "trace_events": len(names), "trace_has": hits,
+            "launches": launches, "step_timer_mean_ms": timer.mean_ms,
+            "cuda_event_mean_ms": float(np.mean(ev)),
+            "steps": DATA_TIMER_STEPS, "loss": float(loss)}
+
+
+def data_phase(torch, cuda_ops, dev, seed):
+    """Phase 13: the reader, prefetch, the reader-fed examples and the
+    profiling helpers (module docstring)."""
+    import os
+
+    from recommenders_addons_tpu_torch.data import CriteoTSVReader
+    from recommenders_addons_tpu_torch.examples import movielens_train
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "day.tsv")
+        t0 = time.perf_counter()
+        write_criteo_tsv(path, DATA_LINES, seed)
+        out["file"] = {"lines": DATA_LINES, "mb": os.path.getsize(path)
+                       / 1e6, "write_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        rows = sum(len(b["label"]) for b in CriteoTSVReader(
+            path, batch_size=DLRM_BATCH))
+        secs = time.perf_counter() - t0
+        if rows != DATA_LINES:
+            raise AssertionError(f"the reader read {rows} rows")
+        out["reader_rows_per_s"] = rows / secs
+
+        common = ["--steps", str(DATA_STEPS), "--batch-size",
+                  str(DLRM_BATCH), "--dim", str(DIM), "--eval-batches", "2",
+                  "--device", "cuda"]
+        out["dlrm_file"] = _dlrm_example(torch, cuda_ops,
+                                         ["--data", path] + common,
+                                         "dlrm_file")
+        torch.cuda.empty_cache()
+        out["dlrm_synthetic"] = _dlrm_example(torch, cuda_ops, common,
+                                              "dlrm_synthetic")
+        torch.cuda.empty_cache()
+        for k in ("dlrm_file", "dlrm_synthetic"):
+            out[k]["ms_per_step"] = DLRM_BATCH / out[k][
+                "examples_per_s"] * 1e3
+
+        small = os.path.join(tmp, "small.tsv")
+        write_criteo_tsv(small, 2000, seed + 1)
+        out["dlrm_auc_bar"] = _dlrm_example(
+            torch, cuda_ops, ["--data", small, "--steps", "60",
+                              "--batch-size", "256", "--dim", "8",
+                              "--eval-batches", "2", "--device", "cuda"],
+            "dlrm_auc_bar")
+        if not out["dlrm_auc_bar"]["auc"] > 0.8:
+            raise AssertionError(f"the reader-fed DLRM's AUC "
+                                 f"{out['dlrm_auc_bar']['auc']} <= 0.8")
+        torch.cuda.empty_cache()
+
+        ratings = os.path.join(tmp, "ratings.dat")
+        write_movielens_ratings(ratings, 4000, seed + 2)
+        cuda_ops.reset_launches()
+        rc, text, secs = _run_main(movielens_train.main, [
+            "--data", ratings, "--steps", "80", "--batch-size", "256",
+            "--eval-batches", "2", "--device", "cuda"])
+        mse = _last_number(text, "eval_mse (")
+        if rc != 0 or not mse < 0.8:
+            raise AssertionError(f"movielens_train: rc {rc}, eval MSE {mse}")
+        out["movielens"] = {"rc": rc, "s": secs, "eval_mse": mse,
+                            "launches": _launched(
+                                cuda_ops, "movielens", (
+                                    "row_gather", "fused_update_scatter"),
+                                "data")}
+        out["profile"] = _profile_dlrm(torch, cuda_ops, dev, path,
+                                       os.path.join(tmp, "trace"))
+    torch.cuda.empty_cache()
+    out["launches"] = {f"data_{k}": out[k]["launches"] for k in (
+        "dlrm_file", "dlrm_synthetic", "dlrm_auc_bar", "movielens",
+        "profile")}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 14. the other seven examples
+# ---------------------------------------------------------------------------
+
+# example -> (its result-line markers, a check of its output)
+EXAMPLES = {
+    "fp16_compress_serving": (["rows as fp16", "served lookup: 8/8 found"],
+                              None),
+    "warm_start_train": (["phase 1 trained eval_mse=",
+                          "-> warm-started eval_mse="], None),
+    "restrict_growth": (["step 60: loss=", "final live keys: "],
+                        lambda t: "cap honored: True" in t),
+    "bpv2_train": (["assign-mode  loss:", "bp_v2 (delta) loss:"],
+                   lambda t: "single-writer rows agree: True" in t),
+    "terabyte_hybrid": (["device live:", "restored: device"],
+                        lambda t: "every row survived" in t),
+    "retrieval_train": (["final: loss=", "group-recall@10="], None),
+    "seq_and_dense_train": (["final: train_mse=", " eval_mse="], None),
+}
+
+
+def examples_phase(torch, cuda_ops):
+    """Phase 14: each example's main at its own defaults on the card."""
+    import importlib
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, (markers, check) in EXAMPLES.items():
+        mod = importlib.import_module(
+            f"recommenders_addons_tpu_torch.examples.{name}")
+        cuda_ops.reset_launches()
+        rc, text, secs = _run_main(mod.main, ["--device", "cuda"])
+        launches = {k.name: k.launches for k in cuda_ops.KERNELS}
+        lines = text.splitlines()
+        if rc != 0 or any(m not in text for m in markers) or (
+                check is not None and not check(text)):
+            raise AssertionError(f"example {name}: rc {rc}\n{text[-2000:]}")
+        if not (launches["row_gather"] or launches["row_scatter"]):
+            raise AssertionError(f"example {name} launched no row kernel")
+        out[name] = {"rc": rc, "s": secs, "launches": launches,
+                     "result_lines": [ln for ln in lines
+                                      if any(m in ln for m in markers)]}
+        torch.cuda.empty_cache()
+    out["launches"] = {f"examples_{k}": v["launches"] for k, v in
+                       out.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3231,6 +3907,12 @@ def main(argv=None) -> int:
     spill = spill_phase(torch, cuda_ops, dev, args.seed)
     spill["native_build_s"] = native_build["s"]
     torch.cuda.empty_cache()
+    dtypes = dtypes_phase(torch, cuda_ops, dev, args.seed, rate)
+    torch.cuda.empty_cache()
+    data = data_phase(torch, cuda_ops, dev, args.seed)
+    torch.cuda.empty_cache()
+    examples = examples_phase(torch, cuda_ops)
+    torch.cuda.empty_cache()
     dma_kernels, dma = dma_bench_phase(torch, cuda_ops, dev, gen, card)
     kernels += dma_kernels
     torch.cuda.empty_cache()
@@ -3245,7 +3927,8 @@ def main(argv=None) -> int:
              "models_sparse_api": models["sparse_api"]["launches"],
              "models_learning_bars": models["learning_bars"]["launches"],
              "lifecycle": life["launches"], **sharded["launches"],
-             **spill["launches"],
+             **spill["launches"], **dtypes["launches"],
+             **data["launches"], **examples["launches"],
              "dma_bench": dma["launches"], **ab["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -3256,6 +3939,9 @@ def main(argv=None) -> int:
                 "row_gather_own_calls_max_abs_err"]
             k["sharded_step_max_abs_err"] = sharded["full_width"][
                 "row_gather_own_calls_max_abs_err"]
+            k["f64_step"] = dtypes["own_calls"]["gather"]
+        if k["name"] == "row_scatter":
+            k["f64_step"] = dtypes["own_calls"]["scatter"]
         if k["name"] == "fused_update_scatter":
             k["dcn_step_ulps_max_abs_err"] = models["dcn"][
                 "fused_own_call_ulps_max_abs_err"]
@@ -3274,6 +3960,9 @@ def main(argv=None) -> int:
     print(json.dumps({"lifecycle": dict(life, card=card)}))
     print(json.dumps({"sharded": dict(sharded, card=card)}))
     print(json.dumps({"spill": dict(spill, card=card)}))
+    print(json.dumps({"dtypes": dict(dtypes, card=card)}))
+    print(json.dumps({"data": dict(data, card=card)}))
+    print(json.dumps({"examples": dict(examples, card=card)}))
     print(json.dumps({"dma_bench": dma}))
     print(json.dumps({"ab_tools": ab}))
     print(json.dumps({"kernels": kernels}))

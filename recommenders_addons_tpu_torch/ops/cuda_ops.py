@@ -32,7 +32,10 @@ bytes: the sources say what their design does about that. Tables keep the JAX
 package's physical layout, a ``[(C+1)*ch, 128]`` container of 32-bit words
 with a trash row block at logical index ``C``; the kernels move the words
 through an int32 view, so f16/bf16 pairs whose bits read as NaNs pass
-untouched.
+untouched. A 64-bit container (f64 and int64 tables) is viewed the same
+way by the row gather and scatter: each 8-byte row of 128 elements is two
+rows of 128 words, so the kernels move it with the chunk counts doubled
+while the logical row count and ``cap`` stay as they are.
 
 Dispatch has one rule: a CUDA tensor goes to the kernel, a CPU tensor to
 the plain PyTorch version beside it (``*_plain``), which the CPU tests run
@@ -218,6 +221,19 @@ def _check_aligned(*ts: torch.Tensor) -> None:
                              "must start on a 16-byte boundary")
 
 
+def _row_words(t: torch.Tensor, what: str):
+    """The row kernels' view of a container of 32- or 64-bit elements:
+    ``(int32 view, k)`` with ``k`` words an element. The view's last
+    dimension is ``k`` times the tensor's (a 64-bit element is its low
+    word, then its high word)."""
+    if t.element_size() not in (4, 8):
+        raise TypeError(f"{what} must hold 32- or 64-bit elements, got "
+                        f"{t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    return t.view(torch.int32), t.element_size() // 4
+
+
 def _index(idx: torch.Tensor, device: torch.device) -> torch.Tensor:
     return idx.reshape(-1).to(device=device, dtype=torch.int32).contiguous()
 
@@ -238,11 +254,13 @@ def _gather_args(table2d, ch, idx, cap, masked, flat, vc):
     if nrows < 1:
         raise ValueError("table holds no row")
     cap = nrows if cap is None else cap
-    t32 = _words(table2d, "table")
-    return t32, vc, nrows, cap, masked and not flat, _index(idx, t32.device)
+    t32, k = _row_words(table2d, "table")
+    # 64-bit rows: the same logical rows as twice the 128-word chunks
+    return (t32.reshape(-1, _LANES), ch * k, vc * k, nrows, cap,
+            masked and not flat, _index(idx, t32.device))
 
 
-def _gather_out(out32, table2d, vc, flat):
+def _gather_out(out32, table2d, flat):
     out = out32.view(table2d.dtype)
     return out.reshape(-1, _LANES) if flat else out
 
@@ -275,22 +293,23 @@ def gather_rows_2d(table2d: torch.Tensor, ch: int, idx: torch.Tensor,
     returns ``[N, vc*128]`` in the table's dtype (``vc`` defaults to
     ``ch``: whole rows).
 
-    ``ch`` is the row stride in 128-word chunks and ``vc`` how many of a
-    row's leading chunks to copy (the JAX package reaches ``vc < ch`` by
+    ``ch`` is the row stride in 128-element chunks and ``vc`` how many of
+    a row's leading chunks to copy (the JAX package reaches ``vc < ch`` by
     premultiplying the index, hashtable.py:657; here the stride is an
     argument). Indices are clamped to ``[0, C+1)``. ``cap`` is the LOGICAL
     capacity (default: every physical row); with ``masked``, rows whose
     index lies outside ``[0, cap)`` are zero, otherwise they carry the
     clamped row's data. ``flat=True`` returns the physical
-    ``[N*vc, 128]`` block, unmasked.
+    ``[N*vc, 128]`` block, unmasked. The table holds 32- or 64-bit
+    elements (others raise ``TypeError``).
 
     CUDA tensors run the ``row_gather`` kernel; CPU tensors run
     :func:`gather_rows_2d_plain`."""
-    t32, vc, nrows, cap, masked, idx = _gather_args(
+    t32, ch, vc, nrows, cap, masked, idx = _gather_args(
         table2d, ch, idx, cap, masked, flat, vc)
     impl = _gather_cuda if _is_cuda(t32) else _gather_plain
     return _gather_out(impl(t32, ch, vc, nrows, cap, masked, idx),
-                       table2d, vc, flat)
+                       table2d, flat)
 
 
 def gather_rows_2d_plain(table2d: torch.Tensor, ch: int, idx: torch.Tensor,
@@ -298,10 +317,10 @@ def gather_rows_2d_plain(table2d: torch.Tensor, ch: int, idx: torch.Tensor,
                          flat: bool = False, vc: int | None = None):
     """The plain PyTorch version of :func:`gather_rows_2d` (advanced
     indexing), on any device."""
-    t32, vc, nrows, cap, masked, idx = _gather_args(
+    t32, ch, vc, nrows, cap, masked, idx = _gather_args(
         table2d, ch, idx, cap, masked, flat, vc)
     return _gather_out(_gather_plain(t32, ch, vc, nrows, cap, masked, idx),
-                       table2d, vc, flat)
+                       table2d, flat)
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -330,13 +349,14 @@ def _scatter_args(table2d, ch, idx, rows, cap):
         raise ValueError(
             "scatter_rows_set_2d requires a table with a trash row "
             "(physical rows > logical capacity)")
-    t32 = _words(table2d, "table")
-    rows32 = _words(rows.to(table2d.dtype).reshape(-1, ch * _LANES)
-                    .contiguous(), "rows")
+    t32, k = _row_words(table2d, "table")
+    rows32, _ = _row_words(rows.to(table2d.dtype).reshape(-1, ch * _LANES)
+                           .contiguous(), "rows")
     idx = _index(idx, t32.device)
     if rows32.shape[0] != idx.shape[0]:
         raise ValueError(f"{idx.shape[0]} indices for {rows32.shape[0]} rows")
-    return t32, cap, idx, rows32
+    # 64-bit rows: the same logical rows as twice the 128-word chunks
+    return t32.reshape(-1, _LANES), ch * k, cap, idx, rows32
 
 
 def _scatter_plain(t32, ch, cap, idx, rows32):
@@ -362,11 +382,11 @@ def scatter_rows_set_2d(table2d: torch.Tensor, ch: int, idx: torch.Tensor,
     capacity (default: all rows but the trailing trash row block). The
     table MUST carry the trash row: invalid and sentinel indices are
     redirected to it, and its contents are then unspecified. Valid indices
-    must be unique.
+    must be unique. The table holds 32- or 64-bit elements.
 
     CUDA tensors run the ``row_scatter`` kernel; CPU tensors run
     :func:`scatter_rows_set_2d_plain`."""
-    t32, cap, idx, rows32 = _scatter_args(table2d, ch, idx, rows, cap)
+    t32, ch, cap, idx, rows32 = _scatter_args(table2d, ch, idx, rows, cap)
     impl = _scatter_cuda if _is_cuda(t32) else _scatter_plain
     impl(t32, ch, cap, idx, rows32)
     return table2d
@@ -377,7 +397,7 @@ def scatter_rows_set_2d_plain(table2d: torch.Tensor, ch: int,
                               cap: int | None = None):
     """The plain PyTorch version of :func:`scatter_rows_set_2d` (an
     indexed assignment), on any device; also in place."""
-    t32, cap, idx, rows32 = _scatter_args(table2d, ch, idx, rows, cap)
+    t32, ch, cap, idx, rows32 = _scatter_args(table2d, ch, idx, rows, cap)
     _scatter_plain(t32, ch, cap, idx, rows32)
     return table2d
 

@@ -8,9 +8,12 @@ docstring): a key hashes to ONE bucket of ``bucket_size`` slots; a batch
 insert ranks its keys within their buckets so that every write goes to a
 distinct slot (a match, a free slot, or the lowest-score victim); the
 value and any optimizer-slot columns of a key live in one packed row of a
-``[(C+1)*ch, 128]`` container of 32-bit words, whose last row block (at
-logical index ``C``) is the trash row that dropped writes land on. Keys are
-stored as two int32 planes, scores as int32.
+``[(C+1)*ch, 128]`` container, whose last row block (at logical index
+``C``) is the trash row that dropped writes land on. The container holds
+32-bit words (16- and 8-bit values packed into them), or the value dtype
+itself for f64, int64 and bool tables; the row kernels move 32- and
+64-bit containers, bool rows move by torch indexing (``_byte_rows``).
+Keys are stored as two int32 planes, scores as int32.
 
 Functions keep the JAX names and the state-in -> state-out signatures.
 One difference: the row scatter writes ``state.rows`` IN PLACE (the JAX
@@ -90,6 +93,12 @@ def from_words(a: np.ndarray, dt) -> torch.Tensor:
     if dt in (torch.bfloat16, torch.float16) and t.dtype == torch.int16:
         return t.view(dt)
     return t.to(dt)
+
+
+def where_or_zero(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` where ``mask``, else zeros of ``x``'s own dtype (a Python 0
+    would promote bool rows to int64)."""
+    return torch.where(mask, x, x.new_zeros(()))
 
 
 def _round_up_pow2(x: int) -> int:
@@ -230,8 +239,9 @@ class TableState:
 
 
 def _container_dtype(value_dtype) -> torch.dtype:
-    """Physical storage dtype: a 32-bit container for sub-32-bit values
-    (bitcast-packed), so the row kernels move 32-bit words only."""
+    """Physical storage dtype: a 32-bit container for 16- and 8-bit
+    values (bitcast-packed), else the value dtype itself (f32, int32,
+    f64, int64, bool), as in the JAX package."""
     dt = torch_dtype(value_dtype)
     if dt.itemsize == 2:
         return torch.float32
@@ -399,16 +409,54 @@ def find(spec: TableSpec, state: TableState, keys: torch.Tensor):
     return torch.where(found, slot, 0), found
 
 
+def _byte_rows(rows: torch.Tensor) -> bool:
+    """Whether a container holds 1-byte elements (bool tables): a chunk of
+    such a row is 128 B, which no 128-word kernel row can hold, so its
+    rows move by torch indexing, as the JAX package moves them with XLA
+    (its Pallas kernels take 32-bit containers only). Every other
+    container goes through the row kernels."""
+    return rows.element_size() == 1
+
+
+def _move_rows_gather(rows: torch.Tensor, ch: int, idx: torch.Tensor,
+                      vc: Optional[int] = None,
+                      flat: bool = False) -> torch.Tensor:
+    """Unmasked row gather of ``vc`` (default ``ch``) leading chunks at
+    ``idx`` (clamped to the table): ``[N, vc*128]``, or ``[N*vc, 128]``
+    with ``flat``. The row-gather kernel, but for 1-byte containers
+    (:func:`_byte_rows`)."""
+    if not _byte_rows(rows):
+        return cuda_ops.gather_rows_2d(rows, ch, idx, masked=False,
+                                       flat=flat, vc=vc)
+    vc = ch if vc is None else vc
+    safe = idx.to(torch.int64).clamp(0, rows.shape[0] // ch - 1)
+    phys = (safe * ch)[:, None] + torch.arange(vc, device=rows.device)
+    out = rows[phys.reshape(-1)]
+    return out if flat else out.reshape(idx.shape[0], vc * _LANES)
+
+
+def _move_rows_scatter(rows: torch.Tensor, ch: int, idx: torch.Tensor,
+                       new: torch.Tensor, cap: int) -> torch.Tensor:
+    """Row scatter of ``new`` ``[N*ch, 128]`` at ``idx`` into the table IN
+    PLACE, indices outside ``[0, cap)`` to the trash row. The row-scatter
+    kernel, but for 1-byte containers (:func:`_byte_rows`)."""
+    if not _byte_rows(rows):
+        return cuda_ops.scatter_rows_set_2d(rows, ch, idx, new, cap=cap)
+    idx = idx.to(torch.int64)
+    safe = torch.where((idx >= 0) & (idx < cap), idx, cap)
+    phys = (safe * ch)[:, None] + torch.arange(ch, device=rows.device)
+    rows[phys.reshape(-1)] = new.reshape(-1, _LANES).to(rows.dtype)
+    return rows
+
+
 def gather_packed(state: TableState, slot: torch.Tensor,
                   found: torch.Tensor) -> torch.Tensor:
     """Packed logical [N, W] rows at ``slot`` through the row-gather
     kernel. Rows where ``found`` is False carry the trash row (unmasked)."""
     idx = torch.where(found, slot, state.capacity)  # sentinel -> trash row
     n = idx.shape[0]
-    phys = cuda_ops.gather_rows_2d(state.rows, state.chunks, idx,
-                                   cap=state.capacity, masked=False)
-    return _to_logical_rows(phys.reshape(n * state.chunks, _LANES),
-                            state.value_dtype, n, state.width)
+    phys = _move_rows_gather(state.rows, state.chunks, idx, flat=True)
+    return _to_logical_rows(phys, state.value_dtype, n, state.width)
 
 
 def gather_packed_phys(state: TableState, slot: torch.Tensor,
@@ -416,9 +464,7 @@ def gather_packed_phys(state: TableState, slot: torch.Tensor,
     """Packed rows at ``slot`` in the PHYSICAL container layout
     ``[N*ch, 128]`` (no relayout to the logical view)."""
     idx = torch.where(found, slot, state.capacity)  # sentinel -> trash row
-    return cuda_ops.gather_rows_2d(state.rows, state.chunks, idx,
-                                   cap=state.capacity, masked=False,
-                                   flat=True)
+    return _move_rows_gather(state.rows, state.chunks, idx, flat=True)
 
 
 def packed_is_phys(state: TableState, n: int, packed: torch.Tensor) -> bool:
@@ -502,8 +548,8 @@ def _scatter_rows_state(state: TableState, idx: torch.Tensor,
     n = packed_rows.shape[0]
     phys = _to_physical_rows(packed_rows.to(state.value_dtype),
                              state.rows.dtype, n * state.chunks)
-    return cuda_ops.scatter_rows_set_2d(state.rows, state.chunks, idx, phys,
-                                        cap=state.capacity)
+    return _move_rows_scatter(state.rows, state.chunks, idx, phys,
+                              state.capacity)
 
 
 def gather_values(state: TableState, slot: torch.Tensor,
@@ -520,7 +566,7 @@ def gather_values(state: TableState, slot: torch.Tensor,
     if dc == 0 or ch % vc:
         return gather_packed(state, slot, found)[:, :d]
     idx = torch.where(found, slot, state.capacity)
-    out = cuda_ops.gather_rows_2d(state.rows, ch, idx, masked=False, vc=vc)
+    out = _move_rows_gather(state.rows, ch, idx, vc=vc)
     col = out[:, :dc]
     if pf == 1:
         return col
@@ -953,7 +999,7 @@ def _pack_rows(state: TableState, n: int, values: Optional[torch.Tensor],
             fresh[:, d * (1 + i): d * (2 + i)] = state.slot_init(nm)
         out = torch.where(inserted[:, None], fresh, out)
     if deltas is not None:
-        old_vals = torch.where(found[:, None], old_packed[:, :d], 0)
+        old_vals = where_or_zero(found[:, None], old_packed[:, :d])
         acc = old_vals + deltas.to(dt)
         new = deltas if values is None else values
         out[:, :d] = torch.where(found[:, None], acc, new.to(dt))
@@ -1026,18 +1072,18 @@ def commit_planned(spec: TableSpec, state: TableState, keys: torch.Tensor,
                             take_elem(state.key_hi, slot)).to(keys.dtype)
         displaced = inserted & (old_keys != spec.empty_key)
         new = values if values is not None else deltas
-        dv = (torch.where(dropped[:, None], new.to(vdt), 0)
+        dv = (where_or_zero(dropped[:, None], new.to(vdt))
               if new is not None
               else torch.zeros((n, d), dtype=vdt, device=state.device))
         evicted = {
             "keys": torch.where(displaced, old_keys, spec.empty_key),
-            "values": torch.where(displaced[:, None], old_packed[:, :d], 0),
+            "values": where_or_zero(displaced[:, None], old_packed[:, :d]),
             "scores": torch.where(displaced, take_elem(state.scores, slot),
                                   0),
-            "slots": {nm: torch.where(
+            "slots": {nm: where_or_zero(
                 displaced[:, None],
                 old_packed[:, state.slot_offset(nm):
-                           state.slot_offset(nm) + d], 0)
+                           state.slot_offset(nm) + d])
                 for nm in state.slot_names},
             "dropped_keys": torch.where(dropped, keys, spec.empty_key),
             "dropped_values": dv,
@@ -1407,7 +1453,11 @@ def segment_sum_rows(g: torch.Tensor, seg: torch.Tensor,
     which a zipf batch's hot id turns into thousands of steps). The f64
     prefix keeps each sum within an f32 rounding of the exact one; it is
     taken along the last axis (one parallel scan per column), since a
-    scan along the first axis runs each column serially."""
+    scan along the first axis runs each column serially.
+
+    f64 rows have no wider type for that prefix: each segment is summed
+    on its own, in batch order (``torch.segment_reduce`` over the sorted
+    rows, the same sequence of f64 additions on every device)."""
     seg = seg.reshape(-1).long()
     idx = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
     srt, order = torch.sort(idx, stable=True)
@@ -1415,6 +1465,8 @@ def segment_sum_rows(g: torch.Tensor, seg: torch.Tensor,
     # unlike a bincount's)
     bounds = torch.searchsorted(srt, torch.arange(num_segments + 1,
                                                   device=g.device))
+    if g.dtype == torch.float64:
+        return torch.segment_reduce(g[order], "sum", offsets=bounds, axis=0)
     cols = g[order].to(torch.float64).t().contiguous()  # [D, N]
     cs = torch.cat([cols.new_zeros((cols.shape[0], 1)),
                     cols.cumsum(dim=1)], dim=1)

@@ -13,9 +13,11 @@ every device):
   dim, whose slots existed at lookup): the optimizer runs inside the
   ``fused_update_scatter`` kernel, which reads the lookup's packed rows
   and writes the new rows straight into the table (``ops/cuda_ops.py``);
-* unfused (f16 and int8 tables, and every ``bp_v2`` table): ``update``
-  on the looked-up rows, then ``Variable.writeback`` (a gather and the
-  row-scatter kernel).
+* unfused (f16, f64 and int8 tables, and every ``bp_v2`` table):
+  ``update`` on the looked-up rows in their own dtype (f64 end to end:
+  the grad combine, the slots and the hyper-parameters), then
+  ``Variable.writeback`` (the row-scatter kernel, on the 64-bit view for
+  an f64 table).
 
 A deferred-dedup lookup's duplicates are combined here, and
 ``return_evicted=True`` returns the rows the apply's inserts displace.

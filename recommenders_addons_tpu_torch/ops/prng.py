@@ -11,7 +11,8 @@ Layouts follow JAX with ``jax_enable_x64`` on (the JAX package enables it)
 and ``jax_threefry_partitionable`` on (the default of the JAX this port
 is held against): ``PRNGKey(seed)`` is ``[seed >> 32, seed & 0xFFFFFFFF]``,
 and element ``i`` of ``random_bits`` is ``x0 ^ x1`` of
-``threefry2x32(key, (0, i))``.
+``threefry2x32(key, (0, i))`` for 32-bit draws, ``x0 << 32 | x1`` for
+64-bit ones (``jax._src.prng._threefry_random_bits_partitionable``).
 """
 
 from __future__ import annotations
@@ -60,9 +61,15 @@ def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32 random bits per element: ``[..., *shape]`` uint32 values (int64)
-    for keys ``[..., 2]``; ``jax.random.bits(key, shape, uint32)``."""
+def random_bits(key: torch.Tensor, shape, width: int = 32) -> torch.Tensor:
+    """``width`` (32 or 64) random bits per element, ``[..., *shape]`` for
+    keys ``[..., 2]``: ``jax.random.bits(key, shape, uint32)`` as uint32
+    values in int64, or ``uint64`` bits reinterpreted as int64. Element
+    ``i`` is one threefry2x32 block at the counter ``(i >> 32, i & M32)``;
+    a 32-bit draw folds its two words, a 64-bit one takes the first as
+    its high word."""
+    if width not in (32, 64):
+        raise ValueError(f"random_bits draws 32 or 64 bits, not {width}")
     shape = tuple(shape)
     n = 1
     for s in shape:
@@ -71,5 +78,9 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     k0 = key[..., 0].reshape(lead + (1,))
     k1 = key[..., 1].reshape(lead + (1,))
     count = torch.arange(n, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(count), count)
-    return (y0 ^ y1).reshape(lead + shape)
+    y0, y1 = threefry2x32(k0, k1, count >> 32, count & _M32)
+    if width == 32:
+        return (y0 ^ y1).reshape(lead + shape)
+    # the high word as a signed int32 value, so the product stays in range
+    hi = y0 - ((y0 >> 31) << 32)
+    return (hi * (1 << 32) + y1).reshape(lead + shape)

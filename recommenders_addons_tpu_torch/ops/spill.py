@@ -315,7 +315,7 @@ def _victim_rows(spec, st: hashtable.TableState, k: int):
         hashtable.take_elem(st.key_hi, safe)), spec.empty_key)
     vscores = torch.where(valid, hashtable.take_elem(st.scores, safe), 0)
     packed = hashtable.gather_packed(st, victims, valid)
-    packed = torch.where(valid[:, None], packed, 0)
+    packed = hashtable.where_or_zero(valid[:, None], packed)
     idx = torch.where(valid, victims, st.capacity)
     e_lo, e_hi = hashtable._split_int(spec.empty_key)
     new = st.replace(

@@ -146,10 +146,11 @@ class Variable:
     devices: Any = None
     kv_creator: Any = None
 
-    # every value dtype whose container is 32-bit, which the row kernels
-    # move (the JAX package's 64-bit and bool tables take XLA paths)
+    # the JAX package's whitelist. 32- and 64-bit containers move through
+    # the row kernels, bool rows by torch indexing (hashtable._byte_rows)
     _KEY_DTYPES = ("int32", "int64")
-    _VALUE_DTYPES = ("float32", "bfloat16", "float16", "int8", "int32")
+    _VALUE_DTYPES = ("float32", "bfloat16", "float16", "float64", "int8",
+                     "int32", "int64", "bool")
 
     def __post_init__(self):
         if self.init_capacity is None:

@@ -190,9 +190,15 @@ def _ulps_bf16(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def test_argument_checks():
-    with pytest.raises(TypeError):
-        cuda_ops.gather_rows_2d(torch.zeros(4, LANES, dtype=torch.float64),
-                                1, torch.arange(2))
+    # 64-bit tables are moved as pairs of words; 8- and 16-bit ones raise
+    for dt in (torch.bool, torch.float16):
+        with pytest.raises(TypeError):
+            cuda_ops.gather_rows_2d(torch.zeros(4, LANES, dtype=dt), 1,
+                                    torch.arange(2))
+        with pytest.raises(TypeError):
+            cuda_ops.scatter_rows_set_2d(torch.zeros(4, LANES, dtype=dt), 1,
+                                         torch.arange(2),
+                                         torch.zeros(2, LANES, dtype=dt))
     with pytest.raises(ValueError):  # no trash row
         cuda_ops.scatter_rows_set_2d(torch.zeros(4, LANES), 1,
                                      torch.arange(2), torch.zeros(2, LANES),
@@ -233,6 +239,38 @@ def test_kernels_match_plain_on_card(cuda, ch, vc):
     torch.cuda.synchronize()
     live = cap * ch
     assert torch.equal(a[:live].view(torch.int32), b[:live].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float64, torch.int64])
+@pytest.mark.parametrize("ch,vc", [(1, 1), (2, 2), (2, 1)])
+def test_64bit_kernels_match_plain_on_card(cuda, dt, ch, vc):
+    """f64 and int64 tables: the kernels move each row as twice the
+    128-word chunks (random bits, NaN patterns included)."""
+    cap, n = 1 << 12, 1037
+    rng = np.random.default_rng(ch + vc)
+    bits = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                        size=((cap + 1) * ch, LANES), dtype=np.int64)
+    t = torch.from_numpy(bits).view(dt).to(cuda)
+    idx = _idx(cap, n, seed=vc).to(cuda)
+    before = cuda_ops.ROW_GATHER.launches
+    for kw in (dict(masked=True), dict(masked=False), dict(flat=True)):
+        got = cuda_ops.gather_rows_2d(t, ch, idx, cap=cap, vc=vc, **kw)
+        want = cuda_ops.gather_rows_2d_plain(t, ch, idx, cap=cap, vc=vc,
+                                             **kw)
+        assert got.dtype == dt
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert cuda_ops.ROW_GATHER.launches == before + 3
+    slots = torch.randperm(cap, device=cuda)[:n].to(torch.int32)
+    slots[::9] = cap
+    rows = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62,
+                                         size=(n, ch * LANES))).view(dt)
+    a, b = t.clone(), t.clone()
+    cuda_ops.scatter_rows_set_2d(a, ch, slots, rows.to(cuda), cap=cap)
+    cuda_ops.scatter_rows_set_2d_plain(b, ch, slots, rows.to(cuda), cap=cap)
+    torch.cuda.synchronize()
+    live = cap * ch
+    assert torch.equal(a[:live].view(torch.int64), b[:live].view(torch.int64))
 
 
 @pytest.mark.gpu

@@ -1,5 +1,5 @@
 """Every public name of the JAX package's namespaces (the root, ``de``,
-``utils``, ``serving``, ``train``, ``models``) exists in the port, its
+``utils``, ``serving``, ``train``, ``models``, ``data``) exists in the port, its
 own submodules included, except the names that wait for a queued module
 of the port (``WAITING``).
 
@@ -15,12 +15,12 @@ import sys
 
 import pytest
 
-NAMESPACES = ["", "dynamic_embedding", "utils", "serving", "train", "models"]
+NAMESPACES = ["", "dynamic_embedding", "utils", "serving", "train", "models",
+              "data"]
 
-# the optax bridge, the JAX profiling helpers and the gRPC front end
+# the optax bridge and the gRPC front end
 WAITING = {
     "dynamic_embedding": {"OptaxSparseOptimizer"},
-    "utils": {"profiling"},
     "serving": {"GrpcEmbeddingClient", "GrpcEmbeddingServer", "grpc_server",
                 "serve_directory_grpc"},
 }
