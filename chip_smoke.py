@@ -26,19 +26,23 @@ Phases (any failure exits non-zero):
    (ch = 1) at N = 65536, on a ragged N with sentinel and negative
    indices (masked and flat), and on a ch = 2 table with the vc = 1 value
    stride; row_scatter of 1Mi rows with unique indices plus sentinels:
-   bit-exact on int32 views. fused_update_scatter for all seven named
-   optimizers on f32 tables and for Adam and Adagrad on bf16 tables (with
-   a foreign slot column passed through, sentinel, negative and
-   past-the-end indices), then at the three inputs of
-   tools/fused_sweep.py: DLRM's shape (Adagrad, 4Mi rows, ch = 1,
-   N = 106,496), the table step's (Adam, 2Mi rows, ch = 2, N = 65,536)
-   and the main path's own operands (one full-width DLRM step's call,
-   about two thirds of its rows bound for the trash row, which the
-   kernel leaves alone). Rows [0, C) it does not write must be
+   bit-exact on int32 views (the scatter on rows [0, C): it does no work
+   for rows bound for the trash row, whose contents are unspecified).
+   fused_update_scatter for all seven named optimizers on f32 tables and
+   for Adam and Adagrad on bf16 tables (with a foreign slot column passed
+   through, sentinel, negative and past-the-end indices), then at the
+   three inputs of tools/fused_sweep.py: DLRM's shape (Adagrad, 4Mi
+   rows, ch = 1, N = 106,496), the table step's (Adam, 2Mi rows,
+   ch = 2, N = 65,536) and the main path's own operands (one full-width
+   DLRM step's call, about two thirds of its rows bound for the trash
+   row, which the kernel leaves alone). Rows [0, C) it does not write must be
    bit-exact, updated f32 words within 4 ulps and bf16 halves within 1.
    Each kernel is timed (CUDA events) beside its plain version, one
    PyTorch library call computing the same function where there is one,
-   and its bound: the bytes it must move over the card's memory rate.
+   and its bound: the bytes it must move over the card's memory rate
+   (row_scatter's counts each row with a valid index read and written
+   once, plus 4 B an index; ``old_bound_ms`` beside it counts every
+   input row read, as the port did until the kernel skipped trash rows).
    fused_update_scatter's row also gives the table step's and the main
    path's times (``table_step_ms``, ``main_path_ms``), their bounds (as
    its own: the rows with a valid index, each reading its value and slot
@@ -226,7 +230,8 @@ Phases (any failure exits non-zero):
    card and from a CPU copy, the files byte-identical, and restored on
    the card, per key bit-equal. (f) row_gather and row_scatter on the
    last f64 step's own operands against their plain versions,
-   bit-exact, timed beside them, the library call and the bytes bound.
+   bit-exact (row_scatter on rows [0, C)), timed beside them, the
+   library call and the bytes bound (row_scatter's as in phase 1).
 13. The input pipeline: a Criteo-format file of 40 x 4,096 lines (about
    30 MB, a learnable hot token) from the seed; CriteoTSVReader's rows/s
    alone; examples/dlrm_train.main at DLRMConfig() width (dim 64, batch
@@ -436,6 +441,8 @@ def _tag_keys(ids: np.ndarray) -> np.ndarray:
 
 def kernel_phase(torch, cuda_ops, dev, gen, rate):
     """Phase 1: each kernel against its plain version; timings."""
+    from recommenders_addons_tpu_torch.tools import row_sweep
+
     i32 = torch.int32
     cap_words = (-(1 << 31), (1 << 31) - 1)
     results = []
@@ -504,8 +511,13 @@ def kernel_phase(torch, cuda_ops, dev, gen, rate):
     s_plain = _time_ms(torch, lambda: cuda_ops.scatter_rows_set_2d_plain(
         table, 1, sidx, rows, cap=C), 10)
     s_lib = _time_ms(torch, lambda: table.index_copy_(0, safe, rows), 20)
-    rows_written = int(torch.unique(safe).numel())
-    s_bytes = N_SCATTER * 512 + N_SCATTER * 4 + rows_written * 512
+    # the bound counts each valid row read and written once, plus the
+    # indices; the count every input row read is kept beside it
+    s_inp = row_sweep.ScatterInput(dict(table2d=table, ch=1, idx=sidx,
+                                        rows=rows, cap=C))
+    s_bytes = row_sweep.scatter_bytes(s_inp)
+    s_old = row_sweep.scatter_bytes_every_row(s_inp)
+    del s_inp
     results.append({
         "name": "row_scatter", "route": "cuda",
         "source": "recommenders_addons_tpu_torch/csrc/row_scatter.cu",
@@ -515,7 +527,10 @@ def kernel_phase(torch, cuda_ops, dev, gen, rate):
         "ms": s_ms, "kernel_ms": s_ms, "plain_ms": s_plain,
         "library_ms": s_lib, "library_call": "torch.Tensor.index_copy_",
         "bound_ms": s_bytes / rate * 1e3, "bound_by": "bytes",
-        "bytes": s_bytes, "shape": f"C={C} ch=1 N={N_SCATTER}",
+        "bytes": s_bytes, "old_bound_ms": s_old / rate * 1e3,
+        "old_bytes": s_old, "shape": f"C={C} ch=1 N={N_SCATTER}",
+        "trash_share": 1.0 - float(((sidx >= 0) & (sidx < C)).float()
+                                   .mean()),
     })
     del table, rows, safe, sidx
     torch.cuda.empty_cache()
@@ -3484,6 +3499,8 @@ def _dtypes_own_calls(torch, cuda_ops, own, rate):
     """(f) Kernels 1 and 2 on an f64 step's own operands (2 KiB rows, the
     64-bit view doubling ch) against their plain versions, bit-exact,
     and timed beside them, the library call and the bytes bound."""
+    from recommenders_addons_tpu_torch.tools import row_sweep
+
     res = {}
     for kind in ("gather", "scatter"):
         if not own.get(kind):
@@ -3522,10 +3539,12 @@ def _dtypes_own_calls(torch, cuda_ops, own, rate):
             plain = lambda: cuda_ops.scatter_rows_set_2d_plain(  # noqa
                 **a)
             lib = lambda: rows.index_copy_(0, safe, src)  # noqa: E731
-            # kernel 2's bound as in phase 1: every input row read, each
-            # row written once (the trash row among them)
-            written = int(torch.unique(safe).numel())
-            nbytes = n * 4 + (n + written) * row_b
+            # kernel 2's bound as in phase 1: each valid row read and
+            # written once, plus the indices; the old count beside it
+            inp = row_sweep.ScatterInput(a)
+            nbytes = row_sweep.scatter_bytes(inp)
+            old = row_sweep.scatter_bytes_every_row(inp)
+            del inp
         if err:
             raise AssertionError(f"row_{kind} on an f64 step's operands: "
                                  f"{err} words apart")
@@ -3535,6 +3554,8 @@ def _dtypes_own_calls(torch, cuda_ops, own, rate):
                      "plain_ms": _time_ms(torch, plain, 5),
                      "library_ms": _time_ms(torch, lib, 20),
                      "bound_ms": nbytes / rate * 1e3, "bytes": nbytes}
+        if kind == "scatter":
+            res[kind].update(old_bound_ms=old / rate * 1e3, old_bytes=old)
         torch.cuda.empty_cache()
     return res
 

@@ -275,14 +275,16 @@ def _gather_plain(t32, ch, vc, nrows, cap, masked, idx):
     return out
 
 
-def _gather_cuda(t32, ch, vc, nrows, cap, masked, idx):
+def _gather_cuda(t32, ch, vc, nrows, cap, masked, idx, kernel=None):
+    """Launch ``kernel`` (default :data:`ROW_GATHER`; the row sweep passes
+    its rebuilt copies)."""
     n = idx.shape[0]
     out = torch.empty((n, vc * _LANES), dtype=torch.int32, device=t32.device)
     _check_aligned(t32, out)
     if n:
-        ROW_GATHER.launch(t32.device, t32.data_ptr(), nrows, ch,
-                          idx.data_ptr(), n, vc, cap, int(masked),
-                          out.data_ptr())
+        (kernel or ROW_GATHER).launch(
+            t32.device, t32.data_ptr(), nrows, ch, idx.data_ptr(), n, vc,
+            cap, int(masked), out.data_ptr())
     return out
 
 
@@ -366,12 +368,14 @@ def _scatter_plain(t32, ch, cap, idx, rows32):
     t32[phys.reshape(-1)] = rows32.reshape(-1, _LANES)
 
 
-def _scatter_cuda(t32, ch, cap, idx, rows32):
+def _scatter_cuda(t32, ch, cap, idx, rows32, kernel=None):
+    """Launch ``kernel`` (default :data:`ROW_SCATTER`; the row sweep passes
+    its rebuilt copies)."""
     _check_aligned(t32, rows32)
     n = idx.shape[0]
     if n:
-        ROW_SCATTER.launch(t32.device, t32.data_ptr(), cap, ch,
-                           idx.data_ptr(), n, rows32.data_ptr())
+        (kernel or ROW_SCATTER).launch(t32.device, t32.data_ptr(), cap, ch,
+                                       idx.data_ptr(), n, rows32.data_ptr())
 
 
 def scatter_rows_set_2d(table2d: torch.Tensor, ch: int, idx: torch.Tensor,
@@ -380,9 +384,11 @@ def scatter_rows_set_2d(table2d: torch.Tensor, ch: int, idx: torch.Tensor,
     PLACE and return ``table2d`` itself (the JAX version aliases the table
     to its output). ``rows`` is ``[N, ch*128]``; ``cap`` the logical
     capacity (default: all rows but the trailing trash row block). The
-    table MUST carry the trash row: invalid and sentinel indices are
-    redirected to it, and its contents are then unspecified. Valid indices
-    must be unique. The table holds 32- or 64-bit elements.
+    table MUST carry the trash row, whose contents are unspecified: rows
+    with invalid and sentinel indices belong to it, the plain version
+    writes them there, the kernel does no work for them and leaves it as
+    it is. Valid indices must be unique. The table holds 32- or 64-bit
+    elements.
 
     CUDA tensors run the ``row_scatter`` kernel; CPU tensors run
     :func:`scatter_rows_set_2d_plain`."""

@@ -32,6 +32,7 @@ from recommenders_addons_tpu_torch.tools import (
     fused_sweep,
     gather_sweep,
     hist_bench,
+    row_sweep,
 )
 
 LANES = 128
@@ -216,61 +217,98 @@ def test_kernel_sources_are_present():
         assert k.library.name.startswith(f"lib{k.name}-")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("ch,vc", [(1, 1), (2, 2), (2, 1)])
-def test_kernels_match_plain_on_card(cuda, ch, vc):
-    cap, n = 1 << 12, 1000
-    t = _table(cap, ch, seed=ch).to(cuda)
-    idx = _idx(cap, n, seed=vc).to(cuda)
-    before = cuda_ops.ROW_GATHER.launches
-    for masked in (True, False):
-        got = cuda_ops.gather_rows_2d(t, ch, idx, cap=cap, masked=masked,
-                                      vc=vc)
-        want = cuda_ops.gather_rows_2d_plain(t, ch, idx, cap=cap,
-                                             masked=masked, vc=vc)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert cuda_ops.ROW_GATHER.launches == before + 2
-    slots = torch.randperm(cap, device=cuda)[:n].to(torch.int32)
-    slots[::9] = cap
-    rows = _table(n - 1, ch, seed=5).reshape(n, ch * LANES).to(cuda)
-    a, b = t.clone(), t.clone()
-    cuda_ops.scatter_rows_set_2d(a, ch, slots, rows, cap=cap)
-    cuda_ops.scatter_rows_set_2d_plain(b, ch, slots, rows, cap=cap)
-    torch.cuda.synchronize()
-    live = cap * ch
-    assert torch.equal(a[:live].view(torch.int32), b[:live].view(torch.int32))
+# (ch, vc, n, share of the scatter's rows bound for the trash row): the
+# main paths' widths, ragged batches of 1, 31 and 33 rows around a
+# warp's 32, trash shares 0, ~70% and 100%, and a batch long enough that
+# every warp of the kernels' resident grid takes many units (an H100
+# holds at most 132 SMs x 8 blocks x 8 warps, 8,448 warps)
+ROW_CASES = [(1, 1, 1000, 1 / 9), (2, 2, 1000, 1 / 9), (2, 1, 1000, 1 / 9),
+             (4, 1, 1037, 1 / 9), (4, 4, 1037, 0.7), (1, 1, 1, 0.0),
+             (2, 2, 31, 0.0), (4, 4, 33, 0.0), (1, 1, 33, 1.0),
+             (2, 1, 1000, 1.0), (1, 1, (1 << 19) + 3, 0.7)]
+WIDE_CASES = [(1, 1, 1037, 1 / 9), (2, 2, 1037, 1 / 9), (2, 1, 1037, 1 / 9),
+              (2, 2, 33, 0.7), (2, 1, 31, 1.0)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dt", [torch.float64, torch.int64])
-@pytest.mark.parametrize("ch,vc", [(1, 1), (2, 2), (2, 1)])
-def test_64bit_kernels_match_plain_on_card(cuda, dt, ch, vc):
-    """f64 and int64 tables: the kernels move each row as twice the
-    128-word chunks (random bits, NaN patterns included)."""
-    cap, n = 1 << 12, 1037
-    rng = np.random.default_rng(ch + vc)
-    bits = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
-                        size=((cap + 1) * ch, LANES), dtype=np.int64)
-    t = torch.from_numpy(bits).view(dt).to(cuda)
-    idx = _idx(cap, n, seed=vc).to(cuda)
+def _bits_dtype(dt):
+    """The integer dtype of ``dt``'s width (32 or 64 bits)."""
+    wide = torch.empty((), dtype=dt).element_size() == 8
+    return torch.int64 if wide else torch.int32
+
+
+def _card_bits(shape, dt, gen, dev):
+    """Random bits of ``dt`` (32- or 64-bit) made on the card."""
+    k = torch.empty((), dtype=dt).element_size() // 4
+    return torch.randint(-(1 << 31), (1 << 31) - 1,
+                         (*shape[:-1], shape[-1] * k), dtype=torch.int32,
+                         device=dev, generator=gen).view(dt)
+
+
+def _scatter_idx(cap, n, trash, gen, dev):
+    """``n`` indices: unique slots of ``[0, cap)``, a ``trash`` share of
+    them (at random places) the sentinel, negative, past the end or the
+    int32 extremes."""
+    idx = torch.randperm(cap, device=dev, generator=gen)[:n].to(torch.int32)
+    bad = torch.randperm(n, device=dev, generator=gen)[:round(trash * n)]
+    junk = torch.tensor([cap, -1, cap + 3, (1 << 31) - 1, -(1 << 31)],
+                        dtype=torch.int32, device=dev)
+    idx[bad] = junk[torch.arange(bad.numel(), device=dev) % junk.numel()]
+    return idx
+
+
+def _check_row_kernels(dev, dt, ch, vc, n, trash, seed):
+    """Both row kernels against their plain versions on a table of ``dt``
+    (random bits, NaN patterns included): the gather masked, unmasked
+    and flat, with sentinel, negative and past-the-end indices; the
+    scatter with ``trash`` of its rows bound for the trash row. Rows
+    [0, cap) must be bit-exact, rows not named keep their bits and the
+    kernel leaves the trash row alone."""
+    it = _bits_dtype(dt)
+    cap = max(1 << 12, n)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = _card_bits(((cap + 1) * ch, LANES), dt, gen, dev)
+    idx = _idx(cap, n, seed=seed).to(dev)
     before = cuda_ops.ROW_GATHER.launches
     for kw in (dict(masked=True), dict(masked=False), dict(flat=True)):
         got = cuda_ops.gather_rows_2d(t, ch, idx, cap=cap, vc=vc, **kw)
         want = cuda_ops.gather_rows_2d_plain(t, ch, idx, cap=cap, vc=vc,
                                              **kw)
         assert got.dtype == dt
-        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+        assert torch.equal(got.view(it), want.view(it)), kw
     assert cuda_ops.ROW_GATHER.launches == before + 3
-    slots = torch.randperm(cap, device=cuda)[:n].to(torch.int32)
-    slots[::9] = cap
-    rows = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62,
-                                         size=(n, ch * LANES))).view(dt)
+    slots = _scatter_idx(cap, n, trash, gen, dev)
+    rows = _card_bits((n, ch * LANES), dt, gen, dev)
     a, b = t.clone(), t.clone()
-    cuda_ops.scatter_rows_set_2d(a, ch, slots, rows.to(cuda), cap=cap)
-    cuda_ops.scatter_rows_set_2d_plain(b, ch, slots, rows.to(cuda), cap=cap)
+    before = cuda_ops.ROW_SCATTER.launches
+    cuda_ops.scatter_rows_set_2d(a, ch, slots, rows, cap=cap)
+    cuda_ops.scatter_rows_set_2d_plain(b, ch, slots, rows, cap=cap)
     torch.cuda.synchronize()
+    assert cuda_ops.ROW_SCATTER.launches == before + 1
     live = cap * ch
-    assert torch.equal(a[:live].view(torch.int64), b[:live].view(torch.int64))
+    assert torch.equal(a[:live].view(it), b[:live].view(it))
+    named = torch.zeros(cap, dtype=torch.bool, device=dev)
+    ok = (slots >= 0) & (slots < cap)
+    named[slots[ok].long()] = True
+    wide = (cap, ch * LANES)
+    assert torch.equal(a[:live].view(it).view(wide)[~named],
+                       t[:live].view(it).view(wide)[~named])
+    assert torch.equal(a[live:].view(it), t[live:].view(it))  # trash row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch,vc,n,trash", ROW_CASES)
+def test_kernels_match_plain_on_card(cuda, ch, vc, n, trash):
+    _check_row_kernels(cuda, torch.float32, ch, vc, n, trash,
+                       seed=ch * 7 + vc + n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float64, torch.int64])
+@pytest.mark.parametrize("ch,vc,n,trash", WIDE_CASES)
+def test_64bit_kernels_match_plain_on_card(cuda, dt, ch, vc, n, trash):
+    """f64 and int64 tables: the kernels move each row as twice the
+    128-word chunks (random bits, NaN patterns included)."""
+    _check_row_kernels(cuda, dt, ch, vc, n, trash, seed=ch + vc + n)
 
 
 @pytest.mark.gpu
@@ -585,6 +623,58 @@ def test_gather_sweep_rewrites_the_ring_constants(tmp_path, monkeypatch):
 def test_gather_sweep_needs_a_card():
     with pytest.raises(RuntimeError):
         gather_sweep.main([], device="cpu")
+
+
+def test_row_sweep_rewrites_its_copies_and_needs_a_card(tmp_path,
+                                                        monkeypatch):
+    """The row sweep's copies of both row kernels carry the constants it
+    asks for (each found once in each source) and build under their own
+    library names; a constant a source lacks is refused; the sweep times
+    kernels on a card only."""
+    monkeypatch.setattr(row_sweep, "_SWEEP_DIR", tmp_path)
+    consts = row_sweep.parse_consts("kDepth=4,kBlocksPerSm=2")
+    assert consts == {"kDepth": "4", "kBlocksPerSm": "2"}
+    copies = row_sweep.copy_kernels("v", cuda_ops._PKG / "csrc", consts)
+    assert sorted(copies) == ["row_gather", "row_scatter"]
+    for name, k in copies.items():
+        text = k.source.read_text()
+        assert "constexpr int kDepth = 4;" in text, name
+        assert "constexpr int kBlocksPerSm = 2;" in text, name
+        assert (k.source.parent / "bulk_copy.cuh").is_file()
+        assert k.library.name != getattr(cuda_ops,
+                                         name.upper()).library.name
+    with pytest.raises(RuntimeError):
+        row_sweep.copy_kernels("w", cuda_ops._PKG / "csrc", {"kNoSuch": 1})
+    with pytest.raises(ValueError):
+        row_sweep.parse_consts("kDepth")
+    with pytest.raises(RuntimeError):
+        row_sweep.main([], device="cpu")
+
+
+def test_row_sweep_inputs_on_cpu():
+    """The sweep's f64 step at a small size: its writeback scatter sends
+    many rows to the trash row (the zipf batch's duplicates; about half
+    here, about 70% at the full size), and the bound counts only the others
+    (read and written once, plus the indices); its gather reads 2 KiB
+    rows as 4 chunks of the int32 view. The serving-shape gather's bound
+    counts each distinct row read once."""
+    dev = torch.device("cpu")
+    g, s = row_sweep.f64_step_calls(dev, cap=1 << 12, keys=2048, block=512,
+                                    steps=2)
+    assert (g.ch, g.vc, s.ch) == (4, 4, 4)
+    valid = int(s.valid().sum())
+    assert 0 < valid < 512 and 0.3 < s.trash_share() < 0.9
+    assert row_sweep.scatter_bytes(s) == valid * 2 * 2048 + 512 * 4
+    assert (row_sweep.scatter_bytes_every_row(s)
+            == (512 + valid + 1) * 2048 + 512 * 4)
+    assert s.all_trash().trash_share() == 1.0
+    assert row_sweep.scatter_bytes(s.all_trash()) == 512 * 4
+    gen = torch.Generator().manual_seed(0)
+    a = row_sweep.gather_input(dev, gen, 1 << 10, 1, n=2048)
+    distinct = int(torch.unique(a.idx).numel())
+    assert row_sweep.gather_bytes(a) == (distinct + 2048) * 512 + 2048 * 4
+    assert a.whole_rows_in_table() and 0 < a.trash_share() < 0.02
+    assert torch.equal(a.library(), a.plain())
 
 
 @pytest.mark.gpu
