@@ -2,10 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (recommenders_addons_tpu_torch) on
 one NVIDIA card: builds the hand-written CUDA kernels from csrc/, holds
 each against its plain PyTorch version at its main paths' shapes, serves
-a DLRM-width dynamic-embedding table through the port's EmbeddingServer,
+a DLRM-width dynamic-embedding table through the port's EmbeddingServer
+(and through the gRPC front end's Lookup handler, without its transport),
 trains the full-width DLRM through train_loop, runs the table-step
 benchmark's configuration through hit, duplicate, fresh-key and eviction
-batches and through the rest of the training surface (deferred dedup,
+batches, trains that table with the optax-style sparse optimizer
+(OptaxSparseOptimizer over transforms.adam) beside the named fused Adam,
+runs the rest of the training surface (deferred dedup,
 bp_v2, evicted rows, the KV API), trains the model families built on the
 sparse lookup API (DCN at full width, MovieLens, two-tower retrieval,
 seq-and-dense) and the sparse API itself, runs the table lifecycle
@@ -57,7 +60,14 @@ Phases (any failure exits non-zero):
    concurrent, each held exactly against the numpy reference. Then
    FrozenTable.lookup is timed at N = 65536 (CUDA events, then a
    torch.profiler trace for the device's busy share and top kernels), and
-   the requests' latency beside the server's table layer alone.
+   the requests' latency beside the server's table layer alone. Then the
+   gRPC front end's Lookup on the same served table without its
+   transport (the smoke imports no grpc): 8 requests packed, passed
+   through grpc_server.lookup_bytes (the codec, the server's _Batcher,
+   FrozenTable.lookup: row_gather) and unpacked, each bit-equal to the
+   numpy reference and its response bytes equal to the codec's packing of
+   the HTTP answer; an unknown table raises UnknownTableError; 16 more
+   timed (host clock, p50 and max), with the codec's share.
 3. Training: a narrow DLRM trains 3 steps on the card and 3 on the CPU
    (the plain versions) from the same weights and batches; losses, key
    planes, scores and rows must agree. Then the full-width DLRM
@@ -70,6 +80,23 @@ Phases (any failure exits non-zero):
    normal(0.05)): embedding_lookup + apply_gradients on batches of 65,536
    ids: fresh, all-hit, zipf duplicates, fresh again, and, after filling
    the table to capacity, fresh ids that must evict.
+4b. The optax-style sparse optimizer at the table step's width: dim 64,
+   2Mi slots, f32, DynamicEmbeddingOptimizer(transforms.adam(1e-3)) (slot
+   columns optax_0 (the per-row step count), optax_1, optax_2: 1 KiB
+   rows), 2 warm and 10 timed steps of 65,536 zipf(1.2) ids from a
+   universe of 1Mi keys (nothing evicted), one step under the sync
+   counter and 4 under torch.profiler; the same steps on a same-shape
+   table with the named fused Adam (ms/step of both, host syncs, the
+   card's busy share). The adapter takes the unfused path: row_gather
+   and row_scatter must launch, fused_update_scatter must not. (a) Every
+   key's count column equals the number of steps whose batch held it,
+   as numpy counts them. (b) Dim 8, 4,096 slots, 5 steps of 1,024 zipf
+   ids from 2,048 keys on the card and on the CPU: key planes, scores
+   and count columns bit-exact, rows and moments within rtol 1e-5 /
+   atol 1e-6. (c) 4 logical shards of the card with the adapter, 3
+   steps of (a)'s width, per key against one table: counts bit-exact,
+   rows within rtol 1e-5 / atol 1e-6 (row_gather and row_scatter must
+   launch).
 5. The rest of the training surface at the table step's width
    (Variable(dim=64, init_capacity=2Mi, Adam(0.001), LRU, normal(0.05)),
    batches of 65,536 ids): (a) 10 zipf-duplicate steps with deferred
@@ -247,7 +274,9 @@ Phases (any failure exits non-zero):
 14. The other seven examples' main() at their own defaults on the card:
    each returns 0 and prints its JAX counterpart's result lines.
 
-Each main path (serving, DLRM training, table step, the five parts of
+Each main path (serving, the gRPC handler, DLRM training, table step,
+the optax adapter, the named Adam beside it, the sharded adapter, the
+five parts of
 the training surface, the DCN, the sparse API, the learning bars, the
 lifecycle, sharded training, the sharded checkpoint, the six parts of
 the spill phase, the dtypes phase's fills, lookups, f64 training and
@@ -257,8 +286,8 @@ counts set to 0 just before it and read just after; a kernel of the
 path that was not launched fails the run.
 
 Output: the card's name and power limit on a line of its own,
-``{"serving": ...}``, ``{"training": ...}``,
-``{"training_surface": ...}``, ``{"models": ...}``, ``{"lifecycle": ...}``,
+``{"serving": ...}`` (its ``grpc`` part inside), ``{"training": ...}``,
+``{"optax": ...}``, ``{"training_surface": ...}``, ``{"models": ...}``, ``{"lifecycle": ...}``,
 ``{"sharded": ...}``, ``{"spill": ...}``, ``{"dtypes": ...}``,
 ``{"data": ...}``, ``{"examples": ...}``, ``{"dma_bench": ...}``,
 ``{"ab_tools": ...}``, ``{"kernels": [...]}`` and last
@@ -343,6 +372,8 @@ SPILL_KEYS, SPILL_BLOCK, SPILL_BATCH = 1 << 23, 65536, 65536
 SPILL_STEPS, SPILL_SHARDED_STEPS = 20, 5
 SPILL_HIGH, SPILL_LOW = 0.95, 0.80
 SPILL_REQUESTS, SPILL_TIMED = 8, 16
+# the serving phase's gRPC part: requests checked and timed
+GRPC_CHECKED, GRPC_TIMED = 8, 16
 SPILL_NARROW = (8, 1 << 12, 1 << 14)
 SPILL_REMOTE_CAP, SPILL_REMOTE_N = 1 << 18, 65536
 # the dtypes phase: the table step's width (dim 64, 2Mi slots, Adam) as
@@ -354,6 +385,14 @@ DT_CAP, DT_DIM, DT_KEYS, DT_BLOCK = TABLE_CAP, 64, 1 << 20, 65536
 DT_STEPS = 10
 DT_NARROW_CAP, DT_NARROW_STEPS, DT_NARROW_BATCH = 1 << 16, 5, 8192
 DT_NARROW_RTOL = 1e-12
+# the optax phase: the adapter at the table step's width (dim 64, 2Mi
+# slots, 1 KiB rows with Adam's three state columns), zipf ids from a
+# universe of 1Mi keys so that nothing is evicted; its warm and timed
+# steps and the profiled ones; (b) the narrow card-against-CPU run (dim,
+# slots, steps, batch, universe); (c) the sharded steps
+OPTAX_UNIVERSE, OPTAX_WARM, OPTAX_TIMED, OPTAX_PROFILED = 1 << 20, 2, 10, 3
+OPTAX_NARROW = (8, 1 << 12, 5, 1024, 2048)
+OPTAX_SHARD_STEPS = 3
 # the data phase: a Criteo-format file of DATA_LINES lines (about 30 MB),
 # the reader-fed full-width DLRM's steps, the steps traced and timed
 DATA_LINES, DATA_STEPS = 40 * 4096, 30
@@ -661,6 +700,9 @@ def serving_phase(torch, cuda_ops, dev, gen, seed):
                 srv._entries["dlrm_shared"].lookup(reqs[i % 8])
                 ent.append(time.perf_counter() - t)
 
+            grpc = _grpc_handler_part(torch, cuda_ops, srv, reqs, answers,
+                                      reference)
+
     seq_ms = sorted(s * 1e3 for s in seq)
     ent_ms = sorted(s * 1e3 for s in ent)
     return {
@@ -678,7 +720,80 @@ def serving_phase(torch, cuda_ops, dev, gen, seed):
         "lookup_keys_per_s": N_GATHER / (lookup_ms / 1e3),
         "lookup_device_busy_share": busy,
         "lookup_top_kernels_ms": top,
+        "grpc": grpc,
     }
+
+
+def _grpc_handler_part(torch, cuda_ops, srv, reqs, answers, reference):
+    """The gRPC front end's Lookup on the served table, without its
+    transport (the smoke imports no grpc): each request packed,
+    passed through ``grpc_server.lookup_bytes`` (the servicer's body:
+    the codec, the server's ``_Batcher`` and ``FrozenTable.lookup``, so
+    row_gather) and unpacked. GRPC_CHECKED requests held bit-equal to the
+    numpy reference, their response bytes equal to the codec's packing
+    of the HTTP client's answer to the same ids; then GRPC_TIMED timed
+    (host clock), with the codec's own time: the client's pack and
+    unpack inside the timed call, the server's unpack and pack of the
+    same bytes timed after it."""
+    import importlib.util
+
+    from recommenders_addons_tpu_torch.serving import grpc_server as g
+
+    name = "dlrm_shared"
+    cuda_ops.reset_launches()
+    for i in range(GRPC_CHECKED):
+        resp = g.lookup_bytes(srv._batchers, g._pack_lookup_request(
+            name, reqs[i]))
+        vals, found = g._unpack_lookup_response(resp)
+        want_vals, want_found = reference(reqs[i])
+        if not (np.array_equal(found, want_found)
+                and np.array_equal(vals.view(np.int32),
+                                   want_vals.view(np.int32))):
+            raise AssertionError(f"gRPC request {i}: the answer differs "
+                                 f"from the numpy reference")
+        if resp != g._pack_lookup_response(*answers[i]):
+            raise AssertionError(f"gRPC request {i}: the response bytes "
+                                 f"differ from the HTTP answer's")
+    try:
+        g.lookup_bytes(srv._batchers, g._pack_lookup_request("nope",
+                                                             reqs[0]))
+        raise AssertionError("an unknown table was answered")
+    except g.UnknownTableError:
+        pass
+    total, codec = [], []
+    for i in range(GRPC_TIMED):
+        q = reqs[i % len(reqs)]
+        t = time.perf_counter()
+        req = g._pack_lookup_request(name, q)
+        t1 = time.perf_counter()
+        resp = g.lookup_bytes(srv._batchers, req)
+        t2 = time.perf_counter()
+        g._unpack_lookup_response(resp)
+        t3 = time.perf_counter()
+        _, ids = g._unpack_lookup_request(req)
+        g._pack_lookup_response(*g._unpack_lookup_response(resp))
+        t4 = time.perf_counter()
+        total.append((t3 - t) * 1e3)
+        codec.append(((t1 - t) + (t3 - t2) + (t4 - t3)) * 1e3)
+    launches = _launched(cuda_ops, "grpc", ("row_gather",),
+                         phase="serving")
+    order = np.argsort(total)
+    p50 = int(order[len(order) // 2])
+    has_grpc = importlib.util.find_spec("grpc") is not None
+    reason = ("this machine has no grpcio" if not has_grpc
+              else "the smoke imports no grpc")
+    print(f"grpc: the transport is not run on the card ({reason}); the "
+          f"Lookup handler's body, grpc_server.lookup_bytes, ran without it")
+    return {"requests_checked": GRPC_CHECKED, "requests_timed": GRPC_TIMED,
+            "ids_per_request": int(reqs[0].shape[0]), "exact": True,
+            "bytes_equal_http_answer": True,
+            "request_ms_p50": total[p50], "request_ms_max": max(total),
+            "codec_ms_p50_request": codec[p50],
+            "codec_share_p50": codec[p50] / total[p50],
+            "codec_share_max_request": codec[int(np.argmax(total))]
+            / max(total),
+            "grpcio_on_this_machine": has_grpc, "transport_run": False,
+            "launches": launches}
 
 
 def fused_kernel_phase(torch, cuda_ops, dev, gen, rate, seed):
@@ -1047,6 +1162,217 @@ def table_step_phase(torch, cuda_ops, dev, seed):
     out["launches"] = launches
     for k in ("hit", "zipf_dup", "fresh"):
         out[f"{k}_keys_per_s"] = TABLE_N / (out[f"{k}_ms"] / 1e3)
+    return out
+
+
+def _optax_batches(seed, n_steps, n, universe_n, what):
+    """``n_steps`` batches of ``n`` zipf(1.2) ids drawn from a seeded
+    universe of ``universe_n`` distinct keys (numpy), and the universe."""
+    rng = np.random.default_rng([seed, what])
+    universe = np.unique(rng.integers(1, 1 << 62, size=universe_n + 4096))
+    universe = rng.permutation(universe)[:universe_n].astype(np.int64)
+    idx = [(rng.zipf(1.2, size=n) - 1) % universe_n for _ in range(n_steps)]
+    return universe, idx
+
+
+def _optax_table(de, name, dim, cap, device=None):
+    return de.Variable(name=name, dim=dim, init_capacity=cap,
+                       initializer=de.initializers.normal(0.05),
+                       device=device)
+
+
+def _optax_steps(sv, st, opt, batches, grads=None):
+    """Lookup + apply over ``batches`` (device tensors of ids) on a table
+    or a sharded table; ``grads[i]`` or ``emb * 0.01``. The lookup stamps
+    step i + 1, the apply i (the DLRM trainer's convention)."""
+    for i, ids in enumerate(batches):
+        emb, ctx = sv.embedding_lookup(st, ids, step=i + 1)
+        g = grads[i] if grads is not None else emb * 0.01
+        st = sv.apply_gradients(st, ctx, g, opt, step=i)
+    return st
+
+
+def _optax_full_width(torch, cuda_ops, de, transforms, dev, seed):
+    """The adapter and the named fused Adam at the table step's width:
+    OPTAX_WARM + OPTAX_TIMED steps, then one step under the sync counter
+    and 1 + OPTAX_PROFILED under torch.profiler, each table on the same
+    batches; then check (a): every key's count column is the number of
+    steps whose batch held the key."""
+    n_steps = OPTAX_WARM + OPTAX_TIMED + 1 + 1 + OPTAX_PROFILED
+    universe, idx = _optax_batches(seed, n_steps, TABLE_N, OPTAX_UNIVERSE,
+                                   1)
+    batches = [torch.from_numpy(universe[i]).to(dev) for i in idx]
+    out = {"config": "dim 64, capacity 2Mi, f32, normal(0.05), LRU; "
+                     "DynamicEmbeddingOptimizer(transforms.adam(1e-3)) "
+                     "beside the named Adam(1e-3)",
+           "batch": TABLE_N, "universe_keys": OPTAX_UNIVERSE,
+           "warm_steps": OPTAX_WARM, "timed_steps": OPTAX_TIMED}
+    runs = {"adapter": de.DynamicEmbeddingOptimizer(transforms.adam(1e-3)),
+            "named_adam": de.Adam(1e-3)}
+    for run, opt in runs.items():
+        var = _optax_table(de, f"optax_{run}", DIM, TABLE_CAP)
+        holder = {"st": de.create_slots(var, var.init(), opt), "i": 0}
+
+        def step():
+            i = holder["i"]
+            emb, ctx = var.embedding_lookup(holder["st"], batches[i],
+                                            step=i + 1)
+            holder["st"] = var.apply_gradients(holder["st"], ctx, emb * 0.01,
+                                               opt, step=i)
+            holder["i"] = i + 1
+            return ctx
+
+        cuda_ops.reset_launches()
+        for _ in range(OPTAX_WARM):
+            step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(OPTAX_TIMED):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / OPTAX_TIMED * 1e3
+        ctx, syncs = _count_syncs(torch, step)
+        busy, top = _device_profile(torch, step, iters=OPTAX_PROFILED)
+        launches = _launched(
+            cuda_ops, run, ("row_gather", "row_scatter") if run == "adapter"
+            else ("row_gather", "fused_update_scatter"), phase="optax")
+        if run == "adapter" and launches["fused_update_scatter"]:
+            raise AssertionError("the optax adapter took the fused path")
+        if holder["i"] != n_steps:
+            raise AssertionError(f"{holder['i']} steps run, {n_steps} drawn")
+        st = holder["st"]
+        size = int(var.size(st))
+        if not bool(torch.isfinite(st.rows_logical[:TABLE_CAP]).all()):
+            raise AssertionError(f"{run}: non-finite rows")
+        out[run] = {"ms_per_step": ms, "host_syncs_per_step": syncs,
+                    "device_busy_share": busy, "top_kernels_ms": top,
+                    "slots": list(st.slot_names), "live_keys": size,
+                    "launches": launches}
+        if run == "adapter":
+            # (a) the per-row step counts against numpy's
+            seen = np.zeros(OPTAX_UNIVERSE, np.int64)
+            for i in idx:
+                seen[np.unique(i)] += 1
+            want_keys = np.sort(universe[seen > 0])
+            want_counts = seen[seen > 0][np.argsort(universe[seen > 0])]
+            got = _per_key(torch, var, st)
+            if not np.array_equal(got["keys"].cpu().numpy(), want_keys):
+                raise AssertionError(
+                    f"adapter: {got['keys'].numel()} live keys, "
+                    f"{want_keys.size} drawn (an id was evicted or dropped)")
+            off = st.slot_offset("optax_0")
+            counts = got["rows"][:, off:off + DIM].view(torch.float32)
+            want = torch.from_numpy(want_counts.astype(np.float32)).to(dev)
+            if not torch.equal(counts, want[:, None].expand_as(counts)):
+                bad = int((counts != want[:, None]).any(1).sum())
+                raise AssertionError(f"adapter: {bad} keys' count columns "
+                                     f"differ from numpy's")
+            out["check_a"] = {"keys": int(want_keys.size),
+                              "count_max": int(want_counts.max()),
+                              "count_mean": float(want_counts.mean()),
+                              "counts_exact": True}
+        del var, holder, st, ctx
+        torch.cuda.empty_cache()
+    out["adapter_over_named_adam"] = (out["adapter"]["ms_per_step"]
+                                      / out["named_adam"]["ms_per_step"])
+    return out
+
+
+def _optax_narrow(torch, de, transforms, dev, seed):
+    """(b) dim OPTAX_NARROW[0], OPTAX_NARROW[1] slots, OPTAX_NARROW[2]
+    steps of zipf ids, on the card and on the CPU from the same grads:
+    key planes, scores and count columns bit-exact, rows and moments
+    within SURFACE_RTOL / SURFACE_ATOL."""
+    dim, cap, steps, n, universe_n = OPTAX_NARROW
+    universe, idx = _optax_batches(seed, steps, n, universe_n, 2)
+    rng = np.random.default_rng([seed, 3])
+    grads = [rng.normal(size=(n, dim)).astype(np.float32)
+             for _ in range(steps)]
+    states = {}
+    for where in (dev, torch.device("cpu")):
+        var = _optax_table(de, "optax_narrow", dim, cap, device=where)
+        opt = de.DynamicEmbeddingOptimizer(transforms.adam(1e-3))
+        states[where.type] = (var, _optax_steps(
+            var, var.init(), opt,
+            [torch.from_numpy(universe[i]).to(where) for i in idx],
+            [torch.from_numpy(g).to(where) for g in grads]))
+    (var, card), (_, cpu) = states["cuda"], states["cpu"]
+    for f in ("key_lo", "key_hi", "scores"):
+        if not torch.equal(getattr(card, f).cpu(), getattr(cpu, f)):
+            raise AssertionError(f"optax narrow: {f} differ card vs CPU")
+    off = card.slot_offset("optax_0")
+    a = card.rows_logical[:cap].cpu()
+    b = cpu.rows_logical[:cap]
+    if not torch.equal(a[:, off:off + dim], b[:, off:off + dim]):
+        raise AssertionError("optax narrow: count columns differ")
+    err = _rows_close(torch, a, b, "optax narrow")
+    return {"dim": dim, "capacity": cap, "steps": steps, "batch": n,
+            "universe_keys": universe_n, "live_keys": int(var.size(card)),
+            "planes_and_counts_bit_exact": True, "rows_max_abs_err": err,
+            "rows_bit_equal": bool(torch.equal(a, b)),
+            "rtol": SURFACE_RTOL, "atol": SURFACE_ATOL}
+
+
+def _optax_sharded(torch, cuda_ops, de, transforms, dev, seed):
+    """(c) SHARDS logical shards of the card with the adapter, at the
+    table step's width, OPTAX_SHARD_STEPS steps, per key against one
+    table (the same keys, scores and count columns; rows and moments
+    within SHARD_RTOL / SHARD_ATOL). The sharded run is a main path:
+    row_gather and row_scatter must launch."""
+    from recommenders_addons_tpu_torch import parallel
+
+    universe, idx = _optax_batches(seed, OPTAX_SHARD_STEPS, TABLE_N,
+                                   OPTAX_UNIVERSE, 4)
+    batches = [torch.from_numpy(universe[i]).to(dev) for i in idx]
+    opt = de.DynamicEmbeddingOptimizer(transforms.adam(1e-3))
+    single = _optax_table(de, "optax_shard", DIM, TABLE_CAP)
+    st1 = _optax_steps(single, de.create_slots(single, single.init(), opt),
+                       opt, batches)
+    want = _per_key(torch, single, st1)
+    del st1
+    torch.cuda.empty_cache()
+    sv = parallel.ShardedVariable(
+        _optax_table(de, "optax_shard", DIM, TABLE_CAP),
+        parallel.create_mesh(devices=[dev] * SHARDS))
+    cuda_ops.reset_launches()
+    t = time.perf_counter()
+    st4 = _optax_steps(sv, sv.create_slots(sv.init(), opt), opt, batches)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / OPTAX_SHARD_STEPS * 1e3
+    launches = _launched(cuda_ops, "sharded", ("row_gather", "row_scatter"),
+                         phase="optax")
+    got = _per_key(torch, sv.var, st4)
+    off = st4.shards[0].slot_offset("optax_0")
+    if not torch.equal(got["rows"][:, off:off + DIM],
+                       want["rows"][:, off:off + DIM]):
+        raise AssertionError("optax sharded: count columns differ")
+    err, same = _rows_agree(torch, got, want, "optax sharded vs unsharded")
+    del st4
+    torch.cuda.empty_cache()
+    return {"shards": SHARDS, "steps": OPTAX_SHARD_STEPS, "batch": TABLE_N,
+            "ms_per_step": ms, "live_keys": int(want["keys"].numel()),
+            "counts_bit_exact": True, "rows_max_abs_err": err,
+            "rows_bit_equal": same, "rtol": SHARD_RTOL, "atol": SHARD_ATOL,
+            "launches": launches}
+
+
+def optax_phase(torch, cuda_ops, dev, seed):
+    """The optax-style adapter (OptaxSparseOptimizer over
+    transforms.adam) at the table step's full width beside the named
+    fused Adam, then checks (b) and (c)."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch import transforms
+
+    t0 = time.perf_counter()
+    out = _optax_full_width(torch, cuda_ops, de, transforms, dev, seed)
+    out["check_b_narrow"] = _optax_narrow(torch, de, transforms, dev, seed)
+    out["check_c_sharded"] = _optax_sharded(torch, cuda_ops, de, transforms,
+                                            dev, seed)
+    out["launches"] = {
+        "optax": out["adapter"]["launches"],
+        "optax_named_adam": out["named_adam"]["launches"],
+        "optax_sharded": out["check_c_sharded"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3911,6 +4237,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     table_step = table_step_phase(torch, cuda_ops, dev, args.seed)
     torch.cuda.empty_cache()
+    optax = optax_phase(torch, cuda_ops, dev, args.seed)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     surface = training_surface_phase(torch, cuda_ops, dev, args.seed)
     surface["phase_s"] = time.perf_counter() - t0
@@ -3940,8 +4268,9 @@ def main(argv=None) -> int:
     ab_kernels, ab = ab_tools_phase(torch, cuda_ops, dev, gen, rate, card)
     kernels += ab_kernels
     paths = {"serving": serving["launches"],
+             "serving_grpc": serving["grpc"]["launches"],
              "dlrm_training": training["launches"],
-             "table_step": table_step["launches"],
+             "table_step": table_step["launches"], **optax["launches"],
              **{f"training_surface_{p}": n
                 for p, n in surface["launches"].items()},
              "models_dcn": models["dcn"]["launches"],
@@ -3970,12 +4299,15 @@ def main(argv=None) -> int:
                 "fused_own_call_ulps_max_abs_err"]
     if "jax" in sys.modules or "recommenders_addons_tpu" in sys.modules:
         raise AssertionError("the port run imported JAX or the JAX package")
+    if "grpc" in sys.modules:
+        raise AssertionError("the port run imported grpc")
 
     print(card)
     print(json.dumps({"serving": dict(serving, build_s=build_s,
                                       mem_bytes_per_s=rate, card=card)}))
     print(json.dumps({"training": dict(training, table_step=table_step,
                                        card=card)}))
+    print(json.dumps({"optax": dict(optax, card=card)}))
     print(json.dumps({"training_surface": dict(surface, card=card)}))
     print(json.dumps({"models": dict(models, card=card)}))
     print(json.dumps({"lifecycle": dict(life, card=card)}))

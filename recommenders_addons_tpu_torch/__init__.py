@@ -28,7 +28,9 @@ a ``torch.distributed`` process group (``parallel.GroupMesh``), with the
 ``mesh=`` models and layers and sharded checkpoints; and the host-DRAM
 spill tier (``de.SpillTier``, ``de.HybridTable``; ops/spill.py) with its
 native C++ store (``native/``) and the networked shared KV tier
-(``serving.kv``).
+(``serving.kv``); the optax-style sparse optimizer
+(``de.OptaxSparseOptimizer`` over the optax-shaped ``transforms``) and
+the gRPC front end (``serving.GrpcEmbeddingServer``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from recommenders_addons_tpu_torch import dynamic_embedding  # noqa: E402,F401
+from recommenders_addons_tpu_torch.ops import transforms  # noqa: E402,F401
 
 
 def register_all(**_kwargs):

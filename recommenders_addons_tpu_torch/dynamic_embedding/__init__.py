@@ -46,6 +46,7 @@ from recommenders_addons_tpu_torch.ops.optimizer import (  # noqa: F401
     AdamW,
     DynamicEmbeddingOptimizer,
     Momentum,
+    OptaxSparseOptimizer,
     RMSprop,
     SparseOptimizer,
     apply_gradients,

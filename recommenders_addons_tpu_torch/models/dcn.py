@@ -27,6 +27,7 @@ from recommenders_addons_tpu_torch.models.common import on_device
 from recommenders_addons_tpu_torch.models.dlrm import (
     OptaxAdagrad,
     batch_auc,
+    dense_optimizer_for,
     optax_sigmoid_bce,
     synthetic_criteo_batch,
     tag_keys,
@@ -130,8 +131,10 @@ class DCN:
     def make_train_step(self, dense_optimizer=None):
         """``(train_step, tx)``: ``train_step(state, opt_state, batch) ->
         (state, opt_state, loss)`` with ``opt_state = tx.init(params)``.
-        The table rows and the dense weights are updated in place."""
-        tx = dense_optimizer or OptaxAdagrad(self.cfg.learning_rate)
+        ``dense_optimizer``: ``OptaxAdagrad`` (the default) or a
+        ``transforms.GradientTransformation``. The table rows and the
+        dense weights are updated in place."""
+        tx = dense_optimizer_for(dense_optimizer, self.cfg.learning_rate)
 
         def train_step(state: DCNState, opt_state, batch):
             keys = tag_keys(batch["sparse"]).reshape(-1)

@@ -6,7 +6,8 @@ with the feature id in the top byte (:func:`tag_keys`); the bottom and
 top towers are dense MLPs (an ``nn.Module``, :class:`DenseTowers`); the
 table trains with the row-wise ``Adagrad`` through the fused
 optimizer-scatter kernel, the towers with Adagrad in optax's form
-(:class:`OptaxAdagrad`). A training step is one call of the function
+(:class:`OptaxAdagrad`) or any ``transforms.GradientTransformation``
+(:class:`DenseTransform`). A training step is one call of the function
 :meth:`DLRM.make_train_step` returns.
 
 With ``mesh=`` the table is a ``parallel.ShardedVariable`` over the
@@ -25,6 +26,7 @@ from torch import nn
 
 from recommenders_addons_tpu_torch import dynamic_embedding as de
 from recommenders_addons_tpu_torch.nn.mlp import MLP
+from recommenders_addons_tpu_torch.ops import transforms
 from recommenders_addons_tpu_torch.parallel.sharded import ShardedVariable
 from recommenders_addons_tpu_torch.utils.config import resolve_device
 
@@ -128,6 +130,38 @@ class OptaxAdagrad:
         return new_state
 
 
+class DenseTransform:
+    """A ``transforms.GradientTransformation`` (the port's optax-shaped
+    transforms) as a model's dense optimizer: ``init(params)`` and
+    ``apply(params, grads, state)``, which adds the updates to the params
+    in place (optax's ``apply_updates``) and returns the new state."""
+
+    def __init__(self, tx: transforms.GradientTransformation):
+        self.tx = tx
+
+    def init(self, params):
+        return self.tx.init([p.detach() for p in params])
+
+    @torch.no_grad()
+    def apply(self, params, grads, state):
+        updates, state = self.tx.update(list(grads), state,
+                                        [p.detach() for p in params])
+        for p, u in zip(params, updates):
+            p.add_(u)
+        return state
+
+
+def dense_optimizer_for(dense_optimizer, learning_rate: float):
+    """The models' dense optimizer: ``OptaxAdagrad(learning_rate)`` by
+    default, a transform wrapped in :class:`DenseTransform`, or anything
+    with ``init`` / ``apply`` as it is."""
+    if dense_optimizer is None:
+        return OptaxAdagrad(learning_rate)
+    if isinstance(dense_optimizer, transforms.GradientTransformation):
+        return DenseTransform(dense_optimizer)
+    return dense_optimizer
+
+
 class DLRM:
     def __init__(self, cfg: DLRMConfig = DLRMConfig(), mesh=None,
                  axis: str = "ep", device=None):
@@ -166,8 +200,10 @@ class DLRM:
     def make_train_step(self, dense_optimizer=None):
         """``(train_step, tx)``: ``train_step(state, opt_state, batch) ->
         (state, opt_state, loss)`` with ``opt_state = tx.init(params)``.
-        The table rows and the tower weights are updated in place."""
-        tx = dense_optimizer or OptaxAdagrad(self.cfg.learning_rate)
+        ``dense_optimizer``: ``OptaxAdagrad`` (the default) or a
+        ``transforms.GradientTransformation``. The table rows and the
+        tower weights are updated in place."""
+        tx = dense_optimizer_for(dense_optimizer, self.cfg.learning_rate)
 
         def train_step(state: DLRMState, opt_state, batch):
             keys = tag_keys(batch["sparse"]).reshape(-1)

@@ -1,6 +1,7 @@
 """Compile-and-cache loader for the port's native host library (ctypes,
 no pybind11): ``host_kv.cc`` built with ``g++`` into
-``build/torch_native/`` beside the package at first use.
+``build/torch_native/`` at a source checkout's root (an installed copy:
+the user's cache directory, ``_paths.build_dir``) at first use.
 
 The library's name hashes its source and the Python version, so an edit
 rebuilds it and two interpreters never share one. A build that fails
@@ -20,9 +21,10 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+from recommenders_addons_tpu_torch._paths import build_dir
+
 _SRC = Path(__file__).resolve().parent / "host_kv.cc"
-_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / (
-    "torch_native")
+_BUILD_DIR = build_dir("torch_native")
 _FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
           "-pthread")
 _LOCK = threading.Lock()

@@ -42,8 +42,9 @@ the plain PyTorch version beside it (``*_plain``), which the CPU tests run
 and ``chip_smoke.py`` holds each kernel against on the card. There is no
 fallback: a kernel that does not build or launch raises.
 
-Kernels are compiled with ``nvcc`` into ``build/torch_kernels/`` beside the
-package, at first use (or all at once, in parallel, by
+Kernels are compiled with ``nvcc`` into ``build/torch_kernels/`` at a
+source checkout's root (an installed copy: the user's cache directory,
+``_paths.build_dir``), at first use (or all at once, in parallel, by
 :func:`build_kernels`), into shared libraries with a plain C interface
 that ``ctypes`` loads; the library name carries a hash of its source and
 the shared headers, so an edited source is rebuilt. Each kernel counts
@@ -68,11 +69,12 @@ from typing import Callable, Tuple
 
 import torch
 
+from recommenders_addons_tpu_torch._paths import build_dir
 from recommenders_addons_tpu_torch.ops.hashing import _wrap32
 
 _LANES = 128
 _PKG = Path(__file__).resolve().parent.parent
-_BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+_BUILD_DIR = build_dir("torch_kernels")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64

@@ -13,26 +13,30 @@ every device):
   dim, whose slots existed at lookup): the optimizer runs inside the
   ``fused_update_scatter`` kernel, which reads the lookup's packed rows
   and writes the new rows straight into the table (``ops/cuda_ops.py``);
-* unfused (f16, f64 and int8 tables, and every ``bp_v2`` table):
-  ``update`` on the looked-up rows in their own dtype (f64 end to end:
-  the grad combine, the slots and the hyper-parameters), then
-  ``Variable.writeback`` (the row-scatter kernel, on the 64-bit view for
-  an f64 table).
+* unfused (f16, f64 and int8 tables, every ``bp_v2`` table, and the
+  optax-style adapter): ``update`` on the looked-up rows in their own
+  dtype (f64 end to end: the grad combine, the slots and the
+  hyper-parameters), then ``Variable.writeback`` (the row-scatter kernel,
+  on the 64-bit view for an f64 table).
 
 A deferred-dedup lookup's duplicates are combined here, and
 ``return_evicted=True`` returns the rows the apply's inserts displace.
 
-Waiting for a later slice: the optax adapter (``OptaxSparseOptimizer``).
+``OptaxSparseOptimizer`` applies any ``ops.transforms``
+``GradientTransformation`` (the port's optax-shaped transforms) row by
+row, as the JAX package's adapter applies an optax one: the state leaves
+are slot columns ``optax_0``, ``optax_1``, ..., and scalar leaves (a step
+count) advance per row.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
-from recommenders_addons_tpu_torch.ops import cuda_ops, hashtable
+from recommenders_addons_tpu_torch.ops import cuda_ops, hashtable, transforms
 
 
 class SparseOptimizer:
@@ -210,22 +214,96 @@ _NAMED = {"sgd": SGD, "momentum": Momentum, "adagrad": Adagrad,
           "adam": Adam, "adamw": AdamW, "rmsprop": RMSprop, "ftrl": FTRL}
 
 
+class OptaxSparseOptimizer(SparseOptimizer):
+    """Adapter: any ``transforms.GradientTransformation`` applied row-wise.
+
+    The state leaves of ``tx.init(zeros[dim])`` (in ``jax.tree_util``
+    order) become slot columns ``optax_<i>`` whose fill is the leaf's
+    first element. Scalar leaves (e.g. Adam's int32 step count) are
+    stored broadcast across a ``[C, dim]`` column in the table's dtype,
+    read back as ``col[:, 0]`` cast to the leaf's dtype, and advance per
+    row: each row's bias correction tracks its own update count. The
+    update runs ``tx.update`` on one row under ``torch.func.vmap``.
+    Transforms that couple parameters globally see one row as the whole
+    tree. Never fused: the apply takes the unfused path (row gather,
+    update, row scatter)."""
+
+    def __init__(self, tx, dim: int, dtype=torch.float32):
+        self._tx = tx
+        probe = tx.init(torch.zeros((dim,), dtype=dtype))
+        leaves, self._treedef = transforms.tree_flatten(probe)
+        self._leaf_shapes = [tuple(leaf.shape) for leaf in leaves]
+        self._leaf_dtypes = [leaf.dtype for leaf in leaves]
+        self._names = [f"optax_{i}" for i in range(len(leaves))]
+        self._fills = [float(leaf.reshape(-1)[0]) for leaf in leaves]
+
+    def slot_specs(self):
+        return dict(zip(self._names, self._fills))
+
+    def _state_from_slots(self, slots):
+        leaves = []
+        for name, shape, dt in zip(self._names, self._leaf_shapes,
+                                   self._leaf_dtypes):
+            col = slots[name]  # [U, D]
+            leaves.append(col[:, 0].to(dt) if shape == () else col.to(dt))
+        return leaves
+
+    def update(self, rows, grads, slots, step):
+        del step  # scalar leaves carry the per-row count
+        leaves = self._state_from_slots(slots)
+        treedef, tx = self._treedef, self._tx
+
+        def row_update(g, p, *state_leaves):
+            st = transforms.tree_unflatten(treedef, state_leaves)
+            upd, new_st = tx.update(g, st, p)
+            return (p + upd, *transforms.tree_leaves(new_st))
+
+        new_rows, *new_leaves = torch.func.vmap(row_update)(grads, rows,
+                                                            *leaves)
+        new_slots = {}
+        for name, shape, leaf in zip(self._names, self._leaf_shapes,
+                                     new_leaves):
+            if shape == ():
+                leaf = leaf[:, None].expand(rows.shape).to(rows.dtype)
+            new_slots[name] = leaf
+        return new_rows, new_slots
+
+
 def DynamicEmbeddingOptimizer(opt, bp_v2=None, **_kw):
     """Parity entry point: a ``SparseOptimizer`` is returned unchanged, a
-    name string gives that named optimizer with its defaults. ``bp_v2``
-    lives on the ``Variable``; the keyword is accepted and ignored."""
+    name string gives that named optimizer with its defaults, and
+    anything else (a ``transforms.GradientTransformation``) is wrapped
+    lazily per table (:func:`resolve_for`). ``bp_v2`` lives on the
+    ``Variable``; the keyword is accepted and ignored."""
     del bp_v2
-    if isinstance(opt, SparseOptimizer):
+    if isinstance(opt, (SparseOptimizer, _LazyOptax)):
         return opt
     if isinstance(opt, str):
         return _NAMED[opt.lower()]()
-    raise NotImplementedError(
-        "optax-style optimizers are not ported yet; use a named optimizer")
+    return _LazyOptax(opt)
+
+
+class _LazyOptax:
+    """Defers the optax-style wrapping until the table's dim is known."""
+
+    def __init__(self, tx):
+        self.tx = tx
+        self._cache: Dict[Tuple[int, Any], OptaxSparseOptimizer] = {}
+
+    def resolve(self, dim: int, dtype) -> OptaxSparseOptimizer:
+        k = (dim, dtype)
+        if k not in self._cache:
+            self._cache[k] = OptaxSparseOptimizer(self.tx, dim, dtype)
+        return self._cache[k]
 
 
 def resolve_for(opt, var) -> SparseOptimizer:
-    del var  # the optax adapter, once ported, sizes itself from the table
-    return DynamicEmbeddingOptimizer(opt)
+    """The row-wise optimizer for ``var``: a lazy optax-style wrapper (or
+    a bare transform) resolved by the table's dim and value dtype."""
+    opt = DynamicEmbeddingOptimizer(opt)
+    if isinstance(opt, _LazyOptax):
+        return opt.resolve(var.dim, var.value_dtype)
+    return opt
 
 
 def create_slots(var, state: hashtable.TableState,
@@ -258,9 +336,10 @@ def gather_slot_rows(var, state, ctx, opt) -> Dict[str, torch.Tensor]:
     for name, fill in specs.items():
         off = state.slot_offset(name)
         col = packed[:, off:off + d]
-        out[name] = torch.where(ctx.found[:, None], col,
-                                torch.tensor(fill, dtype=col.dtype,
-                                             device=col.device))
+        # the fill made on the device (a host tensor would be copied
+        # there: a host sync per slot)
+        out[name] = torch.where(ctx.found[:, None], col, col.new_full((),
+                                                                      fill))
     return out
 
 

@@ -107,6 +107,15 @@ class LookupContext:
     deferred: bool = False
 
 
+def _device_scalar(v, dev) -> torch.Tensor:
+    """A step or epoch as a 0-d tensor on ``dev``. A Python int is filled
+    there as int64 (``torch.as_tensor``'s dtype for it) rather than copied
+    from the host, which would be a host sync."""
+    if isinstance(v, int):
+        return torch.full((), v, dtype=torch.int64, device=dev)
+    return torch.as_tensor(v, device=dev)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Variable:
     """Static description of one dynamic-embedding table."""
@@ -228,8 +237,8 @@ class Variable:
         n = keys.shape[0]
         dev = keys.device
         sdt = self.spec.score_dtype
-        step = torch.as_tensor(step, device=dev).to(sdt)
-        epoch = torch.as_tensor(epoch, device=dev).to(sdt)
+        step = _device_scalar(step, dev).to(sdt)
+        epoch = _device_scalar(epoch, dev).to(sdt)
         eshift = 32 if sdt == torch.int64 else 20
         emax = (1 << ((63 if sdt == torch.int64 else 31) - eshift)) - 1
         c = (torch.ones((n,), dtype=sdt, device=dev) if counts is None

@@ -13,7 +13,8 @@ Endpoints:
 
 A table may have a host-DRAM spill tier (``tiers=``, ops/spill.py): its
 misses are read through the tier's store, and found where the tier holds
-them. Still to port: the gRPC front end.
+them. The gRPC front end (``serving/grpc_server.py``) shares the
+micro-batching core and the directory loader.
 """
 
 from __future__ import annotations
@@ -303,11 +304,10 @@ class EmbeddingClient:
                 np.asarray(out["found"], bool))
 
 
-def serve_directory(directory: str, host: str = "127.0.0.1",
-                    port: int = 8501, device=None, **kw) -> EmbeddingServer:
-    """Load every ``*_serving`` compressed export under ``directory``
-    (ops/serving.export_compressed layout) onto ``device`` (default CUDA)
-    and serve it."""
+def load_directory(directory: str, device=None) -> Dict[str, Any]:
+    """``{name: FrozenTable}``: every ``*_serving`` compressed export
+    under ``directory`` (ops/serving.export_compressed layout), loaded
+    onto ``device`` (default CUDA)."""
     import glob
     import os
 
@@ -324,7 +324,15 @@ def serve_directory(directory: str, host: str = "127.0.0.1",
     if not tables:
         raise FileNotFoundError(
             f"no *_serving-meta.json exports under {directory}")
-    return EmbeddingServer(tables, host=host, port=port, **kw)
+    return tables
+
+
+def serve_directory(directory: str, host: str = "127.0.0.1",
+                    port: int = 8501, device=None, **kw) -> EmbeddingServer:
+    """Load every ``*_serving`` compressed export under ``directory``
+    onto ``device`` (default CUDA) and serve it."""
+    return EmbeddingServer(load_directory(directory, device), host=host,
+                           port=port, **kw)
 
 
 def main(argv=None):
@@ -339,15 +347,23 @@ def main(argv=None):
                    help="torch device the tables live on (default cuda)")
     p.add_argument("--max-batch", type=int, default=16384)
     p.add_argument("--max-wait-ms", type=float, default=2.0)
+    p.add_argument("--grpc", action="store_true",
+                   help="serve gRPC (serving/grpc_server.py; needs grpcio) "
+                        "instead of HTTP")
     p.add_argument("--token", default=None,
                    help="require 'Authorization: Bearer <token>'")
     p.add_argument("--tls-cert", default=None, help="PEM cert path")
     p.add_argument("--tls-key", default=None, help="PEM key path")
     args = p.parse_args(argv)
-    srv = serve_directory(args.dir, host=args.host, port=args.port,
-                          device=args.device, max_batch=args.max_batch,
-                          max_wait_ms=args.max_wait_ms, token=args.token,
-                          tls_cert=args.tls_cert, tls_key=args.tls_key)
+    serve = serve_directory
+    if args.grpc:
+        from recommenders_addons_tpu_torch.serving.grpc_server import (
+            serve_directory_grpc as serve,
+        )
+    srv = serve(args.dir, host=args.host, port=args.port,
+                device=args.device, max_batch=args.max_batch,
+                max_wait_ms=args.max_wait_ms, token=args.token,
+                tls_cert=args.tls_cert, tls_key=args.tls_key)
     print(f"serving {list(srv._entries)} on {srv.host}:{srv.port}",
           flush=True)
     srv.start()

@@ -48,7 +48,11 @@ def test_synthetic_batches_are_the_jax_packages():
     assert tdlrm.batch_auc(logits, labels) == jdlrm.batch_auc(logits, labels)
 
 
-def test_dlrm_train_steps_match(monkeypatch):
+def _train_both(monkeypatch, jtx=None, ttx=None):
+    """Three steps of both packages' DLRM from the same weights and
+    batches, with their default tower optimizer or ``jtx`` / ``ttx``;
+    returns ``(batches, JAX model, its state, its losses, port model,
+    its state, its losses)``."""
     monkeypatch.setenv("TFRA_TPU_PALLAS_INTERPRET", "1")
     # one grid step of 128 rows takes these 128-key batches (see
     # tests/test_torch_training.py: a smaller program to interpret)
@@ -60,7 +64,7 @@ def test_dlrm_train_steps_match(monkeypatch):
     jst = jm.init(jax.random.PRNGKey(0))
     jst = dataclasses.replace(
         jst, table=jde.create_slots(jm.var, jst.table, jm.opt))
-    jstep, jtx = jm.make_train_step()
+    jstep, jtx = jm.make_train_step(jtx)
     jopt = jtx.init(jst.dense)
     jstep = jax.jit(jstep)
     jloss = []
@@ -74,7 +78,7 @@ def test_dlrm_train_steps_match(monkeypatch):
         jax.device_get(jm.init(jax.random.PRNGKey(0)).dense), tm.cfg,
         device="cpu")
     table = tde.create_slots(tm.var, tm.var.init(), tm.opt)
-    tstep, ttx = tm.make_train_step()
+    tstep, ttx = tm.make_train_step(ttx)
     carry = [tdlrm.DLRMState(table=table, dense=dense, step=0),
              ttx.init(list(dense.parameters()))]
 
@@ -87,7 +91,11 @@ def test_dlrm_train_steps_match(monkeypatch):
         step_fn, carry[0], batches, LoopConfig(steps=STEPS, log_every=1),
         on_log=lambda step, m: tloss.append(m["loss"]), device="cpu")
     assert report.steps == STEPS and tst.step == STEPS
+    return batches, jm, jst, jloss, tm, tst, tloss
 
+
+def test_dlrm_train_steps_match(monkeypatch):
+    batches, jm, jst, jloss, tm, tst, tloss = _train_both(monkeypatch)
     np.testing.assert_allclose(tloss, jloss, rtol=1e-4, atol=1e-5)
     got, want = convert.dlrm_dense_to_numpy(tst.dense), jst.dense
     for name in ("bottom", "top"):
@@ -110,3 +118,23 @@ def test_dlrm_train_steps_match(monkeypatch):
         np.asarray(jm.predict(jst, {k: jnp.asarray(v)
                                     for k, v in batches[0].items()})),
         rtol=1e-4, atol=1e-5)
+
+
+def test_dlrm_dense_optimizer_takes_a_transform(monkeypatch):
+    """``make_train_step(transforms.adam(...))`` trains the towers as the
+    JAX model does with ``optax.adam``: losses within rtol 1e-5, tower
+    weights within rtol 1e-4 / atol 1e-5."""
+    import optax
+
+    from recommenders_addons_tpu_torch import transforms
+
+    _, _, jst, jloss, _, tst, tloss = _train_both(
+        monkeypatch, optax.adam(0.01), transforms.adam(0.01))
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+    assert tloss[-1] != tloss[0]
+    got, want = convert.dlrm_dense_to_numpy(tst.dense), jst.dense
+    for name in ("bottom", "top"):
+        for g, w in zip(got[name], want[name]):
+            for k in ("w", "b"):
+                np.testing.assert_allclose(g[k], np.asarray(w[k]),
+                                           rtol=1e-4, atol=1e-5)

@@ -18,12 +18,7 @@ import pytest
 NAMESPACES = ["", "dynamic_embedding", "utils", "serving", "train", "models",
               "data"]
 
-# the optax bridge and the gRPC front end
-WAITING = {
-    "dynamic_embedding": {"OptaxSparseOptimizer"},
-    "serving": {"GrpcEmbeddingClient", "GrpcEmbeddingServer", "grpc_server",
-                "serve_directory_grpc"},
-}
+WAITING = {}
 
 _SCRIPT = """
 import importlib, json, sys, types

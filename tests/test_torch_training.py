@@ -331,17 +331,23 @@ def test_lookup_with_init_for_missing_matches():
 
 @pytest.mark.parametrize("case", ["bp_v2", "return_evicted", "optax"])
 def test_training_api_guards(case):
-    """``bp_v2`` and ``return_evicted``, which raised until they were
-    ported, now train alike in both packages (SGD on the XLA path, the
-    same step at lookup and apply; rows within rtol 1e-5 / atol 1e-6,
-    evicted keys exact); an optax-style optimizer still raises."""
-    if case == "optax":
-        with pytest.raises(NotImplementedError):
-            tde.DynamicEmbeddingOptimizer(object())
-        assert isinstance(tde.DynamicEmbeddingOptimizer("adam"), tde.Adam)
-        return
+    """``bp_v2``, ``return_evicted`` and an optax-style optimizer, which
+    raised until they were ported, now train alike in both packages (SGD
+    on the XLA path, or Adam through optax against the port's
+    ``transforms``; the same step at lookup and apply; rows within rtol
+    1e-5 / atol 1e-6, evicted keys exact)."""
     kw = {"bp_v2": True} if case == "bp_v2" else {}
     ev = case == "return_evicted"
+    if case == "optax":
+        import optax
+
+        from recommenders_addons_tpu_torch import transforms
+
+        jopt = jde.DynamicEmbeddingOptimizer(optax.adam(0.05))
+        topt = tde.DynamicEmbeddingOptimizer(transforms.adam(0.05))
+        assert isinstance(tde.DynamicEmbeddingOptimizer("adam"), tde.Adam)
+    else:
+        jopt, topt = jde.SGD(0.05), tde.SGD(0.05)
     jv = jvar.Variable(name="g", dim=DIM, init_capacity=256,
                        initializer=jax.nn.initializers.uniform(0.05), **kw)
     tv = tde.Variable(name="g", dim=DIM, init_capacity=256, device="cpu",
@@ -351,7 +357,7 @@ def test_training_api_guards(case):
     @jax.jit
     def jstep(st, keys, g, step):
         _, jctx = jv.embedding_lookup(st, keys, step=step)
-        return jv.apply_gradients(st, jctx, g, jde.SGD(0.05), step=step,
+        return jv.apply_gradients(st, jctx, g, jopt, step=step,
                                   return_evicted=ev)
 
     rng = np.random.default_rng(8)
@@ -360,8 +366,8 @@ def test_training_api_guards(case):
         g = rng.normal(size=(200, DIM)).astype(np.float32)
         jout = jstep(jst, jnp.asarray(keys), jnp.asarray(g), jnp.int32(step))
         _, ctx = tv.embedding_lookup(tst, torch.from_numpy(keys), step=step)
-        out = tv.apply_gradients(tst, ctx, torch.from_numpy(g),
-                                 tde.SGD(0.05), step=step, return_evicted=ev)
+        out = tv.apply_gradients(tst, ctx, torch.from_numpy(g), topt,
+                                 step=step, return_evicted=ev)
         if ev:
             (jst, jevicted), (tst, evicted) = jout, out
             np.testing.assert_array_equal(evicted["keys"].numpy(),
