@@ -52,6 +52,18 @@ Phases (any failure exits non-zero):
    words and grads and writing its whole row, plus 4 B an index), the
    bytes the kernel moves (``*moved_bytes``) and the main path's share
    of trash rows (``main_path_trash_share``).
+   init_rows (kernel 10) at one DLRM step's own call: 8,192 x 26
+   positions of ids uniform over 150,000 (~113k distinct, the
+   uniform-warm cell's), each key's first position its representative,
+   130 of those new (inserted), the rest found; every other position
+   EMPTY and not found, as plan_lookup hands them over. On the f32 block
+   (the logical layout, value and Adagrad slot: W = 128) and the bf16
+   one (physical, W = 256 halves): bit-exact against its plain version
+   (uniform(0.05)), timed beside it, its bound the bytes it must move
+   (keys and flags read, not-found rows' values and inserted rows' slot
+   columns written); normal(0.05) within 4 f32 / 1 bf16 ulp. Then a
+   miss-branch Variable.embedding_lookup must launch it once, an all-hit
+   one not at all.
 2. The serving slice: a Variable(dim=64, init_capacity=1<<22) filled with
    26 features x 80,658 feature-tagged ids (the DLRM shared table's
    layout, models/dlrm.py), export_compressed to f16, serve_directory
@@ -580,6 +592,110 @@ def kernel_phase(torch, cuda_ops, dev, gen, rate):
     return results
 
 
+def _init_rows_call(torch, dev, gen, dt, n_new=130):
+    """init_rows' operands as one uniform-warm DLRM step hands them over
+    (see the module docstring); returns (args, not-found count)."""
+    from recommenders_addons_tpu_torch.ops import hashing, initializers, prng
+
+    n = DLRM_BATCH * 2 * FEATURES
+    keys = torch.randint(0, 150_000, (n,), device=dev, generator=gen)
+    keys = keys * 0x9E3779B1 + (1 << 40)
+    _, inv = torch.unique(keys, return_inverse=True)
+    pos = torch.arange(n, device=dev)
+    first = torch.full((int(inv.max()) + 1,), n, device=dev).scatter_reduce(
+        0, inv, pos, "amin")
+    rep = torch.zeros(n, dtype=torch.bool, device=dev)
+    rep[first] = True
+    inserted = torch.zeros_like(rep)
+    inserted[first[torch.randperm(first.numel(), device=dev,
+                                  generator=gen)[:n_new]]] = True
+    found = rep & ~inserted
+    uniq = torch.where(rep, keys, hashing.EMPTY_KEY)
+    w = LANES * (2 if dt == torch.bfloat16 else 1)
+    rows = torch.randint(-(1 << 31), (1 << 31) - 1, (n, LANES),
+                         dtype=torch.int32, device=dev,
+                         generator=gen).view(dt).reshape(n, w)
+    fresh = torch.zeros(w - DIM, dtype=dt, device=dev)
+    fresh[:DIM] = 0.1  # the Adagrad slot's initial accumulator
+    args = (rows, uniq, found, inserted, prng.PRNGKey(7, device=dev),
+            initializers.uniform(0.05), DIM, fresh)
+    return args, int((~found).sum())
+
+
+def _init_rows_kernel(torch, cuda_ops, dev, gen, rate):
+    """Kernel 10 against its plain version at one DLRM step's own call,
+    f32 and bf16; then the launches of a miss-branch and an all-hit
+    lookup."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.ops import initializers
+    from recommenders_addons_tpu_torch.tools.fused_sweep import max_ulps
+
+    out = {}
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        args, not_found = _init_rows_call(torch, dev, gen, dt)
+        rows, rest = args[0], args[1:]
+        got = rows.clone()
+        cuda_ops.init_rows(got, *rest)
+        cuda_ops.init_rows_plain(rows, *rest)
+        err = _same_bits(torch, got.view(torch.int32), rows.view(torch.int32))
+        nrm = rest[:4] + (initializers.normal(0.05),) + rest[5:]
+        a, b = rows.clone(), rows.clone()
+        cuda_ops.init_rows(a, *nrm)
+        cuda_ops.init_rows_plain(b, *nrm)
+        ulps = max_ulps(a, b, 32 if dt == torch.float32 else 16)
+        del a, b
+        ms = _time_ms(torch, lambda: cuda_ops.init_rows(got, *rest), 50)
+        plain_ms = _time_ms(torch, lambda: cuda_ops.init_rows_plain(
+            rows, *rest), 5)
+        n, w = rows.shape
+        esize = rows.element_size()
+        n_ins = int(rest[2].sum())
+        nbytes = (n * (rest[0].element_size() + 2)
+                  + not_found * DIM * esize + n_ins * (w - DIM) * esize)
+        out[tag] = {"max_abs_err": err, "normal_max_ulps": ulps, "ms": ms,
+                    "plain_ms": plain_ms, "bytes": nbytes,
+                    "bound_ms": nbytes / rate * 1e3, "not_found": not_found,
+                    "inserted": n_ins, "shape": f"N={n} W={w} D={DIM}"}
+        if err or ulps > (4 if dt == torch.float32 else 1):
+            raise AssertionError(f"init_rows {tag} disagrees with its plain "
+                                 f"version: {out[tag]}")
+        del rows, got, args, rest, nrm
+        torch.cuda.empty_cache()
+
+    var = de.Variable(name="init_rows_smoke", dim=DIM, init_capacity=1 << 16,
+                      initializer=de.initializers.uniform(0.05))
+    st = de.create_slots(var, var.init(), de.Adagrad(0.01))
+    keys = torch.randint(1, 1 << 40, (DLRM_BATCH,), device=dev,
+                         generator=gen)
+    seen = {}
+    for what, batch in (("miss", keys), ("hit", keys)):
+        cuda_ops.reset_launches()
+        _, ctx = var.embedding_lookup(st, batch, step=1)
+        st = var.apply_gradients(st, ctx, torch.zeros(
+            (batch.numel(), DIM), device=dev), de.Adagrad(0.01), step=1)
+        seen[what] = cuda_ops.INIT_ROWS.launches
+    if seen != {"miss": 1, "hit": 0}:
+        raise AssertionError(f"init_rows launches by lookup branch: {seen} "
+                             f"(want one on the miss branch, none on hits)")
+    f32 = out["f32"]
+    return {
+        "name": "init_rows", "route": "cuda",
+        "source": "recommenders_addons_tpu_torch/csrc/init_rows.cu",
+        "replaces": "none (XLA's threefry in the JAX package's "
+                    "plan_lookup_train; the port's torch threefry)",
+        "replaces_fn": "materialize_rows + blend in "
+                       "hashtable.plan_lookup_train's miss branch",
+        "max_abs_err": max(o["max_abs_err"] for o in out.values()),
+        "match": True, "ms": f32["ms"], "kernel_ms": f32["ms"],
+        "plain_ms": f32["plain_ms"], "library_ms": None,
+        "library_call": "none (no PyTorch call draws threefry rows)",
+        "bound_ms": f32["bound_ms"], "bound_by": "bytes",
+        "bytes": f32["bytes"], "shape": f32["shape"],
+        "dlrm_step_f32": f32, "dlrm_step_bf16_phys": out["bf16"],
+        "lookup_launches": seen,
+    }
+
+
 def serving_phase(torch, cuda_ops, dev, gen, seed):
     """Phase 2: the port's serving path, end to end, on the card."""
     from recommenders_addons_tpu_torch import dynamic_embedding as de
@@ -1019,7 +1135,7 @@ def _train_full_width(torch, cuda_ops, dev, model, seed, steps, n_extra,
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in cuda_ops.KERNELS}
-    for k in ("row_gather", "fused_update_scatter"):
+    for k in ("row_gather", "fused_update_scatter", "init_rows"):
         if not launches[k]:
             raise AssertionError(f"{k} was not launched in {what}: "
                                  f"{launches}")
@@ -1152,7 +1268,7 @@ def table_step_phase(torch, cuda_ops, dev, seed):
     if victims == 0:
         raise AssertionError("the full table's fresh batch evicted no key")
     launches = {k.name: k.launches for k in cuda_ops.KERNELS}
-    for k in ("row_gather", "fused_update_scatter"):
+    for k in ("row_gather", "fused_update_scatter", "init_rows"):
         if not launches[k]:
             raise AssertionError(f"{k} was not launched in the table step: "
                                  f"{launches}")
@@ -4232,6 +4348,7 @@ def main(argv=None) -> int:
     kernels = kernel_phase(torch, cuda_ops, dev, gen, rate)
     kernels.append(fused_kernel_phase(torch, cuda_ops, dev, gen, rate,
                                       args.seed))
+    kernels.append(_init_rows_kernel(torch, cuda_ops, dev, gen, rate))
     serving = serving_phase(torch, cuda_ops, dev, gen, args.seed)
     training = training_phase(torch, cuda_ops, dev, args.seed)
     torch.cuda.empty_cache()

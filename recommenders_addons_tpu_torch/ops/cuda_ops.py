@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the dynamic-embedding hot path — the
 port's counterpart of the JAX package's ``ops/pallas_ops.py``.
 
-Three kernels of the library's paths, all CUDA C++ for Hopper
+Four kernels of the library's paths, all CUDA C++ for Hopper
 (``sm_90a``) under ``csrc/``:
 
 * ``row_gather`` (``csrc/row_gather.cu``) replaces the Pallas
@@ -13,7 +13,12 @@ Three kernels of the library's paths, all CUDA C++ for Hopper
   ``fused_update_scatter_refs`` (pallas_ops.py:322) with the tile math of
   ``optimizer._fused_rows_pf1``/``_pf2`` behind
   :func:`fused_update_scatter`: a named optimizer's row update fused into
-  the row scatter.
+  the row scatter;
+* ``init_rows`` (``csrc/init_rows.cu``) replaces no Pallas kernel: behind
+  :func:`init_rows`, it draws the initial rows of the keys a training
+  lookup did not find (threefry and the uniform or normal initializer, in
+  registers) straight into the lookup's packed block, where the JAX
+  package lets XLA draw a row for every position of the batch.
 
 The registry also holds the four kernels of the row-copy
 micro-benchmark (``DMA_GATHER``, ``DMA_GATHER_GROUPED``,
@@ -26,9 +31,10 @@ raw-copy row scatter, wrapped by ``tools/ab_kernel_cost.py``) and
 ``tools/ab_radix_plan.py``), so one build and one launch count cover
 every kernel of the port.
 
-All are indexed data movement (the fused applies with a few flops per
-word, the histogram with one atomic add per key), so all are bound by
-bytes: the sources say what their design does about that. Tables keep the JAX
+All but ``init_rows`` are indexed data movement (the fused applies with a
+few flops per word, the histogram with one atomic add per key), so they
+are bound by bytes; ``init_rows`` by threefry's integer arithmetic: the
+sources say what their design does about that. Tables keep the JAX
 package's physical layout, a ``[(C+1)*ch, 128]`` container of 32-bit words
 with a trash row block at logical index ``C``; the kernels move the words
 through an int32 view, so f16/bf16 pairs whose bits read as NaNs pass
@@ -60,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -70,6 +77,7 @@ from typing import Callable, Tuple
 import torch
 
 from recommenders_addons_tpu_torch._paths import build_dir
+from recommenders_addons_tpu_torch.ops import initializers
 from recommenders_addons_tpu_torch.ops.hashing import _wrap32
 
 _LANES = 128
@@ -172,9 +180,11 @@ DMA_SCATTER = _Kernel("dma_scatter", [_P, _I64, _I32, _P, _I64, _P, _I64,
 AB_FUSED = _Kernel("ab_fused", [_P, _I64, _P, _I64, _P, _P, _F32, _I32,
                                 _I32, _I32, _P])
 RADIX_HIST = _Kernel("radix_hist", [_P, _I64, _P, _P, _I32, _P, _P])
+INIT_ROWS = _Kernel("init_rows", [_P, _I64, _I64, _I32, _I32, _P, _I32, _P,
+                                  _P, _P, _I32, _F32, _F32, _F32, _P, _P])
 KERNELS = (ROW_GATHER, ROW_SCATTER, FUSED_UPDATE_SCATTER, DMA_GATHER,
            DMA_GATHER_GROUPED, DMA_SCATTER_GROUPED, DMA_SCATTER, AB_FUSED,
-           RADIX_HIST)
+           RADIX_HIST, INIT_ROWS)
 
 
 def build_kernels(kernels=KERNELS) -> None:
@@ -589,3 +599,117 @@ def fused_update_scatter_plain(table2d: torch.Tensor, ch: int,
                                   slot_names, cap, pf)
     _fused_plain(t32, ch, cap, idx, pk, g, rule, dim, slot_names, step, pf)
     return table2d
+
+
+# ---------------------------------------------------------------------------
+# initial rows of the keys a training lookup did not find (in place)
+# ---------------------------------------------------------------------------
+
+# the kernel's dtype and initializer codes (csrc/init_rows.cu)
+_INIT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_INIT_KINDS = {initializers.uniform: 0, initializers.normal: 1}
+
+
+def init_rows_covers(initializer, dtype) -> bool:
+    """Whether the ``init_rows`` kernel draws ``initializer``'s rows in
+    ``dtype``: ``uniform`` or ``normal`` on f32, bf16 and f16 values."""
+    return type(initializer) in _INIT_KINDS and dtype in _INIT_DTYPES
+
+
+def _init_args(rows, uniq, found, inserted, rng, dim, fresh):
+    if rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous [N, W] block")
+    n, w = rows.shape
+    if not 1 <= dim <= w:
+        raise ValueError(f"need 1 <= dim <= {w}, got {dim}")
+    if uniq.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"keys must be int32 or int64, got {uniq.dtype}")
+    for t, what in ((uniq, "keys"), (found, "found"),
+                    (inserted, "inserted")):
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"{what} must be [{n}], got {tuple(t.shape)}")
+    if found.dtype != torch.bool or inserted.dtype != torch.bool:
+        raise TypeError("found and inserted must be bool")
+    if fresh is not None and (fresh.dtype != rows.dtype
+                              or tuple(fresh.shape) != (w - dim,)):
+        raise ValueError(f"fresh must be [{w - dim}] {rows.dtype}")
+    for t in (uniq, found, inserted, rng) + (() if fresh is None
+                                              else (fresh,)):
+        if t.device != rows.device:
+            raise ValueError(f"operand on {t.device}, rows on {rows.device}")
+    return (uniq.contiguous(), found.contiguous(), inserted.contiguous(),
+            rng.to(torch.int64).contiguous(),
+            None if fresh is None else fresh.contiguous())
+
+
+def _init_constants(initializer, dt):
+    """The kernel's three constants, rounded to ``dt`` by torch as the
+    plain version rounds them: uniform's ``scale``; normal's lower bound,
+    ``sqrt(2)`` and ``stddev``."""
+    def rounded(x):
+        return float(torch.tensor(x, dtype=dt))
+
+    if type(initializer) is initializers.uniform:
+        return rounded(initializer.scale), 0.0, 0.0
+    lo = initializers.normal_lower_bound(dt)
+    span = torch.tensor(1.0, dtype=dt) - torch.tensor(lo, dtype=dt)
+    if float(span) != 2.0:  # the kernel computes _fma(u, span, lo) as u*2+lo
+        raise AssertionError(f"normal's range rounds to {float(span)} in {dt}")
+    return rounded(lo), rounded(math.sqrt(2)), rounded(initializer.stddev)
+
+
+def init_rows_plain(rows: torch.Tensor, uniq: torch.Tensor,
+                    found: torch.Tensor, inserted: torch.Tensor,
+                    rng: torch.Tensor, initializer, dim: int,
+                    fresh: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`init_rows`, on any device and for
+    any initializer: every position's row from
+    ``initializers.materialize_rows``, kept where not found; also in
+    place."""
+    uniq, found, inserted, rng, fresh = _init_args(
+        rows, uniq, found, inserted, rng, dim, fresh)
+    new = initializers.materialize_rows(initializer, rng, uniq, dim,
+                                        rows.dtype)
+    rows[:, :dim] = torch.where(found[:, None], rows[:, :dim], new)
+    if fresh is not None:
+        rows[:, dim:] = torch.where(inserted[:, None], fresh, rows[:, dim:])
+    return rows
+
+
+def init_rows(rows: torch.Tensor, uniq: torch.Tensor, found: torch.Tensor,
+              inserted: torch.Tensor, rng: torch.Tensor, initializer,
+              dim: int, fresh: torch.Tensor | None = None) -> torch.Tensor:
+    """Write the training lookup's rows for the keys it did not find into
+    its packed block ``rows`` IN PLACE, and return ``rows``.
+
+    ``rows`` is the ``[N, W]`` block in the value dtype (the physical
+    layout viewed as values: the same bytes). Where ``found`` is False the
+    first ``dim`` columns get the row ``initializers.materialize_rows``
+    gives for ``uniq`` (EMPTY and non-representative positions included)
+    from the base threefry key ``rng`` (``[2]`` int64, on the device);
+    where ``inserted`` is True the columns past ``dim`` get ``fresh``
+    (``[W - dim]``: the slot fills and zero padding; None leaves them).
+    Found rows are left as they are.
+
+    CUDA tensors run the ``init_rows`` kernel, which covers uniform and
+    normal initializers on f32, bf16 and f16 values
+    (:func:`init_rows_covers`; others raise) and reads nothing back to the
+    host; CPU tensors run :func:`init_rows_plain`."""
+    if not _is_cuda(rows):
+        return init_rows_plain(rows, uniq, found, inserted, rng,
+                               initializer, dim, fresh)
+    if not init_rows_covers(initializer, rows.dtype):
+        raise TypeError(f"no init_rows kernel for {initializer!r} on "
+                        f"{rows.dtype} rows")
+    uniq, found, inserted, rng, fresh = _init_args(
+        rows, uniq, found, inserted, rng, dim, fresh)
+    n, w = rows.shape
+    if n:
+        INIT_ROWS.launch(
+            rows.device, rows.data_ptr(), n, w, dim, _INIT_DTYPES[rows.dtype],
+            uniq.data_ptr(), int(uniq.dtype == torch.int64), found.data_ptr(),
+            inserted.data_ptr(), rng.data_ptr(),
+            _INIT_KINDS[type(initializer)],
+            *_init_constants(initializer, rows.dtype),
+            None if fresh is None else fresh.data_ptr())
+    return rows

@@ -524,11 +524,24 @@ def reset_inserted_slots(state: TableState, n: int, packed: torch.Tensor,
                                              packed.dtype)
         view[:, dw:] = torch.where(inserted[:, None], fresh, view[:, dw:])
         return view.reshape(n * state.chunks, _LANES)
-    fresh = torch.zeros(state.width - d, dtype=vdt, device=packed.device)
-    for i, nm in enumerate(state.slot_names):
-        fresh[d * i:d * (i + 1)] = state.slot_init(nm)
+    fresh = fresh_tail(state, packed.device)
     packed[:, d:] = torch.where(inserted[:, None], fresh, packed[:, d:])
     return packed
+
+
+def fresh_tail(state: TableState, device) -> Optional[torch.Tensor]:
+    """An inserted row's columns past its value, ``[W - dim]`` in the value
+    dtype: each slot's fresh fill, then zero padding. None for a table
+    without slot columns, whose inserted rows keep what the gather put
+    there (:func:`reset_inserted_slots` leaves them)."""
+    if not state.slot_names:
+        return None
+    d = state.dim
+    fresh = torch.zeros(state.width - d, dtype=state.value_dtype,
+                        device=device)
+    for i, nm in enumerate(state.slot_names):
+        fresh[d * i:d * (i + 1)] = state.slot_init(nm)
+    return fresh
 
 
 def phys_packed_ok(state: TableState) -> bool:
@@ -794,7 +807,11 @@ def plan_lookup_train(spec: TableSpec, state: TableState, keys: torch.Tensor,
     * the packed block's value columns hold the blended row (stored row
       for hits, ``init_fn`` row for misses) and inserted rows' slot
       columns hold their fresh fills, so the fused apply reads the block
-      verbatim; its layout is physical when :func:`phys_packed_ok`;
+      verbatim; its layout is physical when :func:`phys_packed_ok`.
+      ``init_fn`` maps keys to rows (:func:`init_missing_rows` then draws
+      one for every position), or has ``init_missing_rows`` of its own
+      (``initializers.RowInit``, which draws only the missing rows), which
+      the miss branch calls instead;
     * the returned key planes carry this batch's inserts, and with
       ``score_const`` (a batch-constant score, LRU-style) the returned
       score plane carries this batch's scores. The hit branch then uses
@@ -814,7 +831,6 @@ def plan_lookup_train(spec: TableSpec, state: TableState, keys: torch.Tensor,
     n = flat.shape[0]
     dev = flat.device
     cap = state.capacity
-    d = state.dim
     slot_f, found_f = find(spec, state, flat)
     valid = flat != spec.empty_key
     phys = phys_packed_ok(state)
@@ -866,17 +882,12 @@ def plan_lookup_train(spec: TableSpec, state: TableState, keys: torch.Tensor,
     else:
         packed = torch.zeros((n, state.width), dtype=state.value_dtype,
                              device=dev)
-    init_rows = init_fn(uniq)
-    stored = packed_value_rows(state, n, packed)
-    rows = torch.where(found[:, None], stored,
-                       init_rows.to(state.value_dtype))
-    if phys:
-        dc = d // _pack_factor(state.value_dtype)
-        packed.view(n, state.chunks, _LANES)[:, 0, :dc] = (
-            rows.contiguous().view(packed.dtype))
+    blend = getattr(init_fn, "init_missing_rows", None)
+    if blend is not None:
+        packed = blend(state, n, packed, uniq, found, inserted)
     else:
-        packed[:, :d] = rows
-    packed = reset_inserted_slots(state, n, packed, inserted)
+        packed = init_missing_rows(state, n, packed, uniq, found, inserted,
+                                   init_fn)
     k_lo, k_hi = split_key(uniq)
     ins_idx = torch.where(inserted, slot, cap)
     out = (uniq, inverse, plan, packed, no_dups, no_dups,
@@ -891,6 +902,28 @@ def plan_lookup_train(spec: TableSpec, state: TableState, keys: torch.Tensor,
 # ---------------------------------------------------------------------------
 # insertion
 # ---------------------------------------------------------------------------
+
+
+def init_missing_rows(state: TableState, n: int, packed: torch.Tensor,
+                      uniq: torch.Tensor, found: torch.Tensor,
+                      inserted: torch.Tensor, init_fn) -> torch.Tensor:
+    """The miss branch's row blend: the packed block's value columns get
+    ``init_fn(uniq)``'s row where ``found`` is False (the stored row stays
+    where it is True), and inserted rows' slot columns their fresh fills
+    (:func:`reset_inserted_slots`). ``init_fn`` draws a row for every
+    position. Writes ``packed`` in place and returns it in its layout."""
+    d = state.dim
+    init_rows = init_fn(uniq)
+    stored = packed_value_rows(state, n, packed)
+    rows = torch.where(found[:, None], stored,
+                       init_rows.to(state.value_dtype))
+    if packed_is_phys(state, n, packed):
+        dc = d // _pack_factor(state.value_dtype)
+        packed.view(n, state.chunks, _LANES)[:, 0, :dc] = (
+            rows.contiguous().view(packed.dtype))
+    else:
+        packed[:, :d] = rows
+    return reset_inserted_slots(state, n, packed, inserted)
 
 
 def _kth_lowest_slot(sc_masked: torch.Tensor, k: torch.Tensor):

@@ -216,6 +216,12 @@ class uniform:  # noqa: N801 - named after jax.nn.initializers.uniform
             self.scale, dtype=dt)
 
 
+def normal_lower_bound(dt: torch.dtype) -> float:
+    """nextafter(-1, 0) in ``dt``: JAX's lower bound for ``normal``'s erfinv
+    input."""
+    return -1.0 + 2.0 ** -(_FLOAT_BITS[dt][1] + 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class normal:  # noqa: N801 - named after jax.nn.initializers.normal
     """Normal with mean 0 and standard deviation ``stddev``."""
@@ -225,9 +231,7 @@ class normal:  # noqa: N801 - named after jax.nn.initializers.normal
 
     def __call__(self, keys, shape, dtype=None):
         dt = _float_dtype(dtype or self.dtype or torch.float32)
-        # nextafter(-1, 0) in ``dt``: JAX's lower bound for the erfinv input
-        lo = -1.0 + 2.0 ** -(_FLOAT_BITS[dt][1] + 1)
-        u = _uniform(keys, shape, dt, lo, 1.0)
+        u = _uniform(keys, shape, dt, normal_lower_bound(dt), 1.0)
         z = torch.tensor(math.sqrt(2), dtype=dt) * _erfinv(u).to(dt)
         return z * torch.tensor(self.stddev, dtype=dt)
 
@@ -295,6 +299,48 @@ def materialize_rows(initializer: InitializerT, base_rng: torch.Tensor,
         return initializer(per_key_rngs(base_rng, keys), (dim,), dtype)
     arr = torch.as_tensor(initializer, dtype=dtype, device=keys.device)
     return arr.expand((n, dim)).clone()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowInit:
+    """A table's initializer bound to its base threefry key, row width and
+    value dtype: ``RowInit(...)(keys)`` is :func:`materialize_rows`. The
+    training lookup's miss branch (``hashtable.plan_lookup_train``) calls
+    :meth:`init_missing_rows` instead, which draws only the rows of the
+    keys it did not find, on the card with the ``init_rows`` kernel
+    (``cuda_ops.init_rows``) where that covers the initializer and the
+    dtype."""
+
+    initializer: InitializerT
+    base_rng: torch.Tensor
+    dim: int
+    dtype: Any
+
+    def __call__(self, keys: torch.Tensor) -> torch.Tensor:
+        return materialize_rows(self.initializer, self.base_rng, keys,
+                                self.dim, self.dtype)
+
+    def init_missing_rows(self, state, n: int, packed: torch.Tensor,
+                          uniq: torch.Tensor, found: torch.Tensor,
+                          inserted: torch.Tensor) -> torch.Tensor:
+        """``hashtable.init_missing_rows`` with this initializer: the packed
+        block's value columns get the initial row where ``found`` is False,
+        inserted rows' slot columns their fresh fills; in place. Uniform
+        and normal on f32, bf16 and f16 tables go through
+        ``cuda_ops.init_rows``; every other initializer and dtype takes the
+        hashtable's own path."""
+        from recommenders_addons_tpu_torch.ops import cuda_ops, hashtable
+
+        dt = state.value_dtype
+        if (self.dim != state.dim or hashtable.torch_dtype(self.dtype) != dt
+                or not cuda_ops.init_rows_covers(self.initializer, dt)):
+            return hashtable.init_missing_rows(state, n, packed, uniq, found,
+                                               inserted, self)
+        cuda_ops.init_rows(hashtable.packed_logical_view(state, n, packed),
+                           uniq, found, inserted, self.base_rng,
+                           self.initializer, self.dim,
+                           hashtable.fresh_tail(state, packed.device))
+        return packed
 
 
 def default_value_of(initializer: InitializerT, dim: int, dtype,

@@ -222,6 +222,12 @@ class Variable:
             seed = zlib.crc32(self.name.encode("utf-8"))
         return prng.PRNGKey(seed, device=device)
 
+    def row_init(self, device=None) -> initializers.RowInit:
+        """The table's initializer bound to its base key on ``device``, its
+        width and its value dtype: the training lookup's ``init_fn``."""
+        return initializers.RowInit(self.initializer, self._rng(device),
+                                    self.dim, self.value_dtype)
+
     def init(self) -> TableState:
         """Empty state on the Variable's device (raises without CUDA
         unless the Variable was made with ``device="cpu"``)."""
@@ -336,11 +342,8 @@ class Variable:
         ids = torch.as_tensor(ids)
         flat = self._flat_kv(ids, device=state.device)
         n = flat.shape[0]
-        base = self._rng(state.device)
         out = hashtable.plan_lookup_train(
-            self.spec, state, flat,
-            lambda u: initializers.materialize_rows(
-                self.initializer, base, u, self.dim, self.value_dtype),
+            self.spec, state, flat, self.row_init(state.device),
             score_const=score_const, defer_dedup=defer)
         (uniq, inverse, (slot, found, inserted, dropped), packed, no_dups,
          rows_aligned, new_lo, new_hi) = out[:8]

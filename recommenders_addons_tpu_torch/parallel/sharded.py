@@ -310,10 +310,7 @@ class ShardedVariable:
         return self._x.all_to_all(bufs)
 
     def _init_fn(self, device):
-        var = self.var
-        base = var._rng(device)
-        return lambda u: initializers.materialize_rows(
-            var.initializer, base, u, var.dim, var.value_dtype)
+        return self.var.row_init(device)
 
     def _lookup_local_train(self, shards, blocks, score_const=None):
         """Training lookup over every local shard. No batch-side dedup on

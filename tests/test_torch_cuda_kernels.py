@@ -107,6 +107,8 @@ def test_cpu_tensors_never_launch_a_kernel():
     ab_kernel_cost.make_fused("adam")(_table(8, 2), torch.arange(4),
                                       torch.rand(4, 256), torch.rand(4, 64), 0)
     ab_radix_plan.pallas_hist(torch.arange(-9, 9), 0)
+    cuda_ops.init_rows(*_init_case("cpu", "uniform", "float32", "int64",
+                                   "mixed", True, n=8, w=128, dim=8))
     assert [k.launches for k in cuda_ops.KERNELS] == [0] * len(
         cuda_ops.KERNELS)
 
@@ -819,6 +821,147 @@ def test_radix_hist_matches_bincount_on_card(cuda, n, offset):
     # int64 ids are cut to int32 first, as the reference's astype
     assert torch.equal(ab_radix_plan.pallas_hist(
         bids.to(torch.int64) + (1 << 33), 0), got)
+
+
+# (initializer, value dtype, key dtype, which positions were found, with
+# slot columns): uniform must match the plain version bit for bit, normal
+# within the ulps above (its log1pf may round apart from torch's)
+INIT_CASES = [(init, dt, kdt, mix, fresh)
+              for init in ("uniform", "normal")
+              for dt in ("float32", "bfloat16", "float16")
+              for kdt, mix, fresh in (("int64", "mixed", True),
+                                      ("int32", "mixed", True),
+                                      ("int64", "all_miss", False),
+                                      ("int32", "all_found", True))]
+
+
+def _init_case(dev, init, dt, kdt, mix, fresh, n=1037, w=256, dim=64,
+               seed=0):
+    """Operands of ``cuda_ops.init_rows`` on ``dev``: a block of random
+    bits, random keys (EMPTY at every 9th position), found and inserted
+    flags as ``mix`` says, the base key and an initializer."""
+    from recommenders_addons_tpu_torch.ops import hashing, initializers, prng
+
+    tdt, kt = getattr(torch, dt), getattr(torch, kdt)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    words = torch.randint(-(1 << 31), (1 << 31) - 1,
+                          (n, w * tdt.itemsize // 4), dtype=torch.int32,
+                          device=dev, generator=gen)
+    rows = words.view(tdt)
+    info = torch.iinfo(kt)
+    keys = torch.randint(info.min, info.max, (n,), dtype=kt, device=dev,
+                         generator=gen)
+    keys[::9] = hashing.empty_key_for(kt)
+    u = torch.rand(n, device=dev, generator=gen)
+    found = {"mixed": u < 0.6, "all_miss": u < 0,
+             "all_found": u >= 0}[mix]
+    inserted = ~found & (torch.rand(n, device=dev, generator=gen) < 0.5)
+    tail = (torch.randint(-(1 << 15), (1 << 15) - 1, (w - dim,),
+                          dtype=torch.int16, device=dev, generator=gen)
+            .view(tdt) if tdt.itemsize == 2 else
+            torch.randn(w - dim, device=dev, generator=gen)) if fresh else None
+    return (rows, keys, found, inserted,
+            prng.PRNGKey((seed << 33) + 12345, device=dev),
+            getattr(initializers, init)(0.05), dim, tail)
+
+
+def test_init_rows_argument_checks():
+    args = list(_init_case("cpu", "uniform", "float32", "int64", "mixed",
+                           True, n=8, w=128, dim=8))
+    for i, bad in ((1, args[1].double()), (2, args[2].int()),
+                   (2, args[2][:4]), (7, args[7][:3]), (7, args[7].half())):
+        with pytest.raises((TypeError, ValueError)):
+            cuda_ops.init_rows(*(args[:i] + [bad] + args[i + 1:]))
+    with pytest.raises(ValueError):  # dim wider than the block
+        cuda_ops.init_rows(*args[:6], 129, None)
+    assert cuda_ops.init_rows_covers(args[5], torch.bfloat16)
+    assert not cuda_ops.init_rows_covers(args[5], torch.float64)
+    from recommenders_addons_tpu_torch.ops import initializers
+    assert not cuda_ops.init_rows_covers(initializers.truncated_normal(),
+                                         torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("init,dt,kdt,mix,fresh", INIT_CASES)
+def test_init_rows_matches_plain_on_card(cuda, init, dt, kdt, mix, fresh):
+    """The kernel on a copy of the block, the plain version on the block
+    itself: found rows and the columns past ``dim`` bit-exact everywhere,
+    the drawn rows bit-exact for uniform and within 4 f32 / 1 16-bit ulp
+    for normal."""
+    rows, *rest = _init_case(cuda, init, dt, kdt, mix, fresh)
+    got = rows.clone()
+    before = cuda_ops.INIT_ROWS.launches
+    cuda_ops.init_rows(got, *rest)
+    assert cuda_ops.INIT_ROWS.launches == before + 1
+    want = cuda_ops.init_rows_plain(rows, *rest)
+    torch.cuda.synchronize()
+    dim = rest[5]
+    bits = torch.int32 if rows.element_size() == 4 else torch.int16
+    assert torch.equal(got[:, dim:].view(bits), want[:, dim:].view(bits))
+    assert torch.equal(got[:, :dim].contiguous().view(bits),
+                       want[:, :dim].contiguous().view(bits)) or (
+        init == "normal" and (_ulps32 if bits == torch.int32 else _ulps_bf16)(
+            got[:, :dim], want[:, :dim]) <= (4 if bits == torch.int32 else 1))
+    if mix == "all_found":
+        assert torch.equal(got.view(bits), _init_case(
+            cuda, init, dt, kdt, mix, fresh)[0].view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("init", ["uniform", "normal"])
+def test_init_rows_in_the_lookup_on_card(cuda, init, dt):
+    """``Variable.embedding_lookup`` on the card: a miss-branch lookup
+    launches init_rows once and its packed block (f32: the logical
+    layout, bf16: the physical one) is the one the function path
+    (``hashtable.init_missing_rows``) leaves, bit for bit for uniform; an
+    all-hit lookup does not launch it."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.ops import hashtable, initializers
+
+    tdt = getattr(torch, dt)
+    var = de.Variable(name="init_rows", dim=64, init_capacity=4096,
+                      value_dtype=tdt,
+                      initializer=getattr(initializers, init)(0.05),
+                      device="cuda")
+    st = de.create_slots(var, var.init(), de.Adagrad(0.01))
+    assert hashtable.phys_packed_ok(st) == (dt == "bfloat16")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pre = torch.randperm(1 << 20, device=cuda, generator=g)[:3000] + 1
+    st = var.upsert(st, pre, torch.randn(3000, 64, device=cuda,
+                                         generator=g).to(tdt), step=1)
+    keys = torch.cat([pre[:2000], pre[:500],
+                      torch.randint(1 << 21, 1 << 40, (700,), device=cuda,
+                                    generator=g)])
+    keys = keys[torch.randperm(keys.numel(), device=cuda, generator=g)]
+
+    def function_path(u):
+        return initializers.materialize_rows(var.initializer, var._rng(cuda),
+                                             u, 64, tdt)
+
+    want = hashtable.plan_lookup_train(var.spec, st, keys, function_path,
+                                       score_const=2)
+    before = cuda_ops.INIT_ROWS.launches
+    _, ctx = var.embedding_lookup(st, keys, step=2)
+    assert cuda_ops.INIT_ROWS.launches == before + 1
+    assert bool(ctx.inserted.any()) and bool(ctx.found.any())
+    bits = torch.int32
+    a, b = ctx.packed.view(bits), want[3].view(bits)
+    if init == "uniform":
+        assert torch.equal(a, b)
+    else:
+        va = hashtable.packed_value_rows(st, keys.numel(), ctx.packed)
+        vb = hashtable.packed_value_rows(st, keys.numel(), want[3])
+        ulps = _ulps32(va, vb) if dt == "float32" else _ulps_bf16(va, vb)
+        assert ulps <= (4 if dt == "float32" else 1)
+        n, d = keys.numel(), 64
+        la = hashtable.packed_logical_view(st, n, ctx.packed)[:, d:]
+        lb = hashtable.packed_logical_view(st, n, want[3])[:, d:]
+        assert torch.equal(la.contiguous().view(torch.int16),
+                           lb.contiguous().view(torch.int16))
+    before = cuda_ops.INIT_ROWS.launches
+    var.embedding_lookup(st, pre[:1000], step=3)  # every key found
+    assert cuda_ops.INIT_ROWS.launches == before
 
 
 def _lifecycle_table(device, value_dtype, seed=0):

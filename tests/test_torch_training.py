@@ -31,6 +31,7 @@ from recommenders_addons_tpu.ops import variable as jvar
 from recommenders_addons_tpu.ops import initializers as jinit
 from recommenders_addons_tpu_torch import convert
 from recommenders_addons_tpu_torch import dynamic_embedding as tde
+from recommenders_addons_tpu_torch.ops import cuda_ops
 from recommenders_addons_tpu_torch.ops import hashtable as tht
 from recommenders_addons_tpu_torch.ops import initializers as tinit
 from recommenders_addons_tpu_torch.ops import prng
@@ -155,9 +156,30 @@ def _plan_setup():
     return pre, jv, tv, jst, plans, batches
 
 
+def _same_plans(got, want):
+    """Two ``plan_lookup_train`` results bit for bit: the plan, the flags,
+    the key and score planes and the WHOLE packed block, every row."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(g, tuple):
+            _same_plans(g, w)
+        elif isinstance(g, torch.Tensor):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            bits = torch.int16 if g.element_size() == 2 else None
+            assert torch.equal(g.view(bits) if bits else g,
+                               w.view(bits) if bits else w)
+        else:
+            assert g == w
+
+
 @pytest.mark.parametrize("case", ["hit", "hit_unique", "miss",
                                   "miss_evict"])
 def test_plan_lookup_train_is_bit_exact(case):
+    """Against the JAX plan, with the initializer as a plain function and
+    as the Variable's ``RowInit`` (the miss branch's init_rows path).
+    Between the two forms the whole packed block is compared, on the
+    carried f32 table (logical layout) and on a bf16 copy with a slot
+    column (physical layout, fresh slot fills)."""
     pre, jv, tv, jst, plans, batches = _plan_setup()
     keys = np.resize(batches[case].astype(np.int64), _PLAN_N)
     if case == "hit_unique":  # dup-free: pad with EMPTY ids
@@ -168,10 +190,28 @@ def test_plan_lookup_train_is_bit_exact(case):
         return tinit.materialize_rows(tv.initializer, tv._rng(), u, DIM,
                                       torch.float32)
 
+    forms = [tinit_fn, tv.row_init("cpu")]
+    tvb = tde.Variable(name="plan", dim=DIM, init_capacity=256,
+                       value_dtype=torch.bfloat16,
+                       initializer=tinit.uniform(0.05), device="cpu")
+    stb = tht.with_slot(tvb.upsert(tvb.init(), torch.from_numpy(pre),
+                                   tst.values[:len(pre)].bfloat16(), step=1),
+                        "accumulator", 0.1)
+    assert tht.phys_packed_ok(stb)
+
+    def tinit_bf16(u):
+        return tinit.materialize_rows(tvb.initializer, tvb._rng(), u, DIM,
+                                      torch.bfloat16)
+
     for sc in (None, 5):
         want = plans[sc](jst, jnp.asarray(keys))
-        got = tht.plan_lookup_train(tv.spec, tst, torch.from_numpy(keys),
-                                    tinit_fn, score_const=sc)
+        outs = [tht.plan_lookup_train(tv.spec, tst, torch.from_numpy(keys),
+                                      f, score_const=sc) for f in forms]
+        _same_plans(outs[1], outs[0])
+        _same_plans(*(tht.plan_lookup_train(
+            tvb.spec, stb, torch.from_numpy(keys), f, score_const=sc)
+            for f in (tvb.row_init("cpu"), tinit_bf16)))
+        got = outs[1]
         assert len(got) == len(want)
         for name, i in (("uniq", 0), ("inverse", 1), ("key_lo", 6),
                         ("key_hi", 7)) + ((("scores", 8),) if sc else ()):
@@ -197,6 +237,69 @@ def test_plan_lookup_train_is_bit_exact(case):
         assert dropped.any()
         victims = np.asarray(jst.keys)[np.asarray(want[2][0])[inserted]]
         assert (victims != jv.empty_key).any()
+
+
+@pytest.mark.parametrize("kdt", ["int64", "int32"])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("init", ["uniform", "normal"])
+def test_row_init_blend_matches_the_function_path(init, dt, kdt,
+                                                  monkeypatch):
+    """The miss branch with the Variable's ``RowInit`` (which goes through
+    ``cuda_ops.init_rows``, here its plain version) against the same
+    branch with the initializer as a plain function (every position's row
+    drawn, then blended): every output and the whole packed block bit for
+    bit, on a 256-slot table with an Adagrad slot column, prefilled, and a
+    batch of hits, new keys, duplicates, EMPTY ids and evictions."""
+    tdt, kt = getattr(torch, dt), getattr(torch, kdt)
+    tv = tde.Variable(name=f"blend_{init}", dim=DIM, init_capacity=256,
+                      key_dtype=kt, value_dtype=tdt,
+                      initializer=getattr(tinit, init)(0.05), device="cpu")
+    rng = np.random.default_rng(5)
+    info = np.iinfo(np.int64 if kdt == "int64" else np.int32)
+    pre = np.unique(rng.integers(info.min + 1, info.max, size=200))
+    st = tv.upsert(tv.init(), torch.from_numpy(pre).to(kt),
+                   torch.from_numpy(rng.normal(size=(len(pre), DIM))
+                                    ).to(tdt), step=1)
+    st = tht.with_slot(st, "accumulator", 0.1)
+    keys = np.concatenate([pre[:64], pre[:32],  # hits and duplicates
+                           rng.integers(info.min + 1, info.max, size=144),
+                           np.full(16, tv.empty_key)]).astype(info.dtype)
+    keys = torch.from_numpy(rng.permutation(keys)).to(kt)
+    calls = []
+    plain = cuda_ops.init_rows_plain
+    monkeypatch.setattr(cuda_ops, "init_rows_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+
+    def init_fn(u):
+        return tinit.materialize_rows(tv.initializer, tv._rng(), u, DIM, tdt)
+
+    got = tht.plan_lookup_train(tv.spec, st, keys, tv.row_init("cpu"),
+                                score_const=3)
+    want = tht.plan_lookup_train(tv.spec, st, keys, init_fn, score_const=3)
+    assert calls == [1]
+    _same_plans(got, want)
+    slot, found, inserted, _ = got[2]
+    assert found.any() and not got[4]  # hits, duplicates
+    victims = st.keys[slot[inserted].long()]
+    assert (victims == tv.empty_key).any() and (victims != tv.empty_key).any()
+
+
+@pytest.mark.parametrize("what", ["truncated_normal", "constant", "float64"])
+def test_row_init_outside_the_kernel_takes_the_function_path(what,
+                                                             monkeypatch):
+    """Initializers and dtypes the init_rows kernel does not cover draw
+    every position's row as before (``hashtable.init_missing_rows``)."""
+    init = {"truncated_normal": tinit.truncated_normal(0.05),
+            "constant": 0.25, "float64": tinit.uniform(0.05)}[what]
+    tdt = torch.float64 if what == "float64" else torch.float32
+    tv = tde.Variable(name="outside", dim=DIM, init_capacity=256,
+                      value_dtype=tdt, initializer=init, device="cpu")
+    monkeypatch.setattr(cuda_ops, "init_rows", None)  # must not be reached
+    keys = torch.arange(1, 300, dtype=torch.int64)
+    got = tht.plan_lookup_train(tv.spec, tv.init(), keys, tv.row_init("cpu"))
+    want = tinit.materialize_rows(init, tv._rng(), got[0], DIM, tdt)
+    rows = tht.packed_value_rows(tv.init(), len(keys), got[3])
+    assert torch.equal(rows[got[2][2]], want[got[2][2]])
 
 
 # ---------------------------------------------------------------------------
