@@ -9,6 +9,15 @@ per feature, ``card_f`` the configuration's cardinality capped at its
 ``max_ind_range``; every id a batch carries lies in it, as the capped ids
 of the configuration's source do. Popularity follows the id: id 0 is a
 feature's most frequent.
+
+Bags: a batch's ``sparse`` has one column per id of an example, grouped
+by feature in feature order (:func:`column_features`): one column a
+feature, or ``multi_hot_sizes[f]`` columns where the configuration gives
+them (:func:`bag_sizes`). A bag is made as MLPerf's DLRM-DCNv2 reference
+makes it from the one-hot id (``torchrec_dlrm/multi_hot.py``,
+``--multi_hot_distribution_type uniform``): its first id is the one drawn,
+the others are a fixed table's row for that id, uniform over the
+feature's vocabulary (:func:`bags`).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Dict, List
 import torch
 
 from benchmark.reference import dense as ref_dense
+from benchmark.reference import hashing
 
 _M64 = (1 << 64) - 1
 
@@ -52,10 +62,68 @@ def cardinalities(cfg) -> List[int]:
     return [min(int(c), cap) for c in cfg["num_embeddings_per_feature"]]
 
 
-def tag(ids: torch.Tensor, shift: int) -> torch.Tensor:
-    """``[..., F]`` raw ids -> int64 keys, the feature in the top bits."""
-    f = torch.arange(ids.shape[-1], dtype=torch.int64, device=ids.device)
-    return ids.to(torch.int64) | (f << shift)
+def bag_sizes(cfg) -> List[int]:
+    """Ids per example of each sparse feature: the configuration's
+    ``multi_hot_sizes``, else one each. Bags are pooled by their
+    ``pooling``, of which ``"sum"`` (the default) is the only one taken."""
+    pooling = cfg.get("pooling", "sum")
+    if pooling != "sum":
+        raise ValueError(f"pooling {pooling!r}: only 'sum' is taken")
+    nf = cfg["num_sparse"]
+    sizes = [int(s) for s in cfg.get("multi_hot_sizes", [1] * nf)]
+    if len(sizes) != nf or min(sizes) < 1:
+        raise ValueError(f"multi_hot_sizes {sizes}: one count of at least "
+                         f"1 for each of the {nf} sparse features")
+    return sizes
+
+
+def column_features(cfg, device=None) -> torch.Tensor:
+    """``[N]`` int64: the feature of each column of a batch's ``sparse``
+    (``arange(F)`` without bags)."""
+    sizes = bag_sizes(cfg)
+    return torch.repeat_interleave(torch.arange(len(sizes)),
+                                   torch.tensor(sizes)).to(device)
+
+
+def tag(ids: torch.Tensor, shift: int, features: torch.Tensor
+        ) -> torch.Tensor:
+    """``[..., N]`` raw ids -> int64 keys, each column's feature
+    (``features [N]``, :func:`column_features`) in the top bits."""
+    return ids.to(torch.int64) | (features.to(ids.device) << shift)
+
+
+def bags(cfg, first: torch.Tensor, tables=None) -> torch.Tensor:
+    """``[B, F]`` drawn ids -> ``[B, N]`` bags (``first`` itself without
+    bags). A bag's first column is its feature's drawn id ``i``; its column
+    ``j >= 1`` holds row ``i``, column ``j`` of a fixed table uniform over
+    the feature's capped vocabulary, as MLPerf's ``Multihot`` makes it
+    (``np.random.randint(0, rows, (rows, size - 1))`` at seed 0). The table
+    is not held: an entry is SplitMix64 of ``i`` salted by ``(f, j)``,
+    modulo the cardinality, the same for every run and seed. ``tables``:
+    :func:`bag_tables` made once on ``first``'s device."""
+    if tables is None:
+        tables = bag_tables(cfg, first.device)
+    if tables is None:
+        return first
+    cols, salt, cards = tables
+    ids = first.to(torch.int64)[:, cols]
+    table = hashing.srl(hashing.mix64(ids ^ salt), 1) % cards
+    return torch.where(salt == 0, ids, table)
+
+
+def bag_tables(cfg, device):
+    """What :func:`bags` indexes with, on ``device``: ``(columns' features
+    [N], salts [N], cardinalities [N])``, or None without bags."""
+    sizes = bag_sizes(cfg)
+    if max(sizes) == 1:
+        return None
+    cols = column_features(cfg, device)
+    salt = torch.tensor([splitmix("bag", f, j) if j else 0
+                         for f, n in enumerate(sizes) for j in range(n)],
+                        dtype=torch.int64, device=device)
+    cards = torch.tensor(cardinalities(cfg), dtype=torch.int64,
+                         device=device)[cols]
+    return cols, salt, cards
 
 
 # ------------------------------------------------------------- prefill
@@ -162,11 +230,12 @@ def _zeta(n: tuple, theta: float, device: str) -> torch.Tensor:
                                device=device), -theta).sum() for c in n])
 
 
-def _zipfian(u: torch.Tensor, n: torch.Tensor, theta: float):
+def _zipfian(u: torch.Tensor, n: torch.Tensor, theta: float,
+             zetan: torch.Tensor):
     """YCSB's ``ZipfianGenerator.nextLong`` (Gray et al., SIGMOD 1994) for
     each column: ``u`` uniform ``[B, F]`` float64, ``n`` the items of each
-    column ``[F]``; ranks ``0 .. n - 1``, rank 0 the most frequent."""
-    zetan = _zeta(tuple(n.tolist()), theta, str(u.device)).to(u.device)
+    column ``[F]``, ``zetan`` their :func:`_zeta`; ranks ``0 .. n - 1``,
+    rank 0 the most frequent."""
     zeta2 = 1.0 + 0.5 ** theta
     nf = n.to(torch.float64)
     alpha = 1.0 / (1.0 - theta)
@@ -184,49 +253,79 @@ def _uniform(u: torch.Tensor, n: torch.Tensor):
     return torch.round(u * (n.to(torch.float64) - 1.0)).to(torch.int64)
 
 
+class Draw:
+    """Batch ``k`` of a run, for any ``k``: ``{"dense" [B, num_dense] f32,
+    "sparse" [B, N] int32, "label" [B] f32}``, ``N`` the columns of
+    :func:`column_features`. Each feature's id drawn independently, from
+    the mix's ``ids`` distribution over its capped cardinality
+    (``zipfian`` with ``theta``, or ``uniform``), and made into its bag by
+    :func:`bags`; dense features uniform on ``[0, 1)``; labels 1 with
+    probability ``label_rate``. What every batch shares is made once, so
+    that drawing a batch waits for nothing on the host."""
+
+    def __init__(self, cfg, mix, seed: int, device):
+        self.cfg, self.mix, self.seed = cfg, mix, seed
+        self.device = torch.device(device)
+        cards = cardinalities(cfg)
+        self.cards = torch.tensor(cards, dtype=torch.int64,
+                                  device=self.device)
+        ids = mix["ids"]
+        self.zetan = None
+        if ids["distribution"] == "zipfian":
+            self.zetan = _zeta(tuple(cards), float(ids["theta"]),
+                               str(self.device)).to(self.device)
+        elif ids["distribution"] != "uniform":
+            raise ValueError(f"unknown id distribution "
+                             f"{ids['distribution']!r}")
+        self.bags = bag_tables(cfg, self.device)
+
+    def __call__(self, k: int):
+        b, dev = self.mix["batch"], self.device
+        g = generator(dev, self.seed, "batch", k)
+        u = torch.rand((b, self.cards.numel()), dtype=torch.float64,
+                       generator=g, device=dev)
+        if self.zetan is not None:
+            first = _zipfian(u, self.cards, float(self.mix["ids"]["theta"]),
+                             self.zetan)
+        else:
+            first = _uniform(u, self.cards)
+        sparse = bags(self.cfg, first, self.bags)
+        dense = torch.rand((b, self.cfg["num_dense"]), generator=g,
+                           device=dev)
+        label = (torch.rand((b,), generator=g, device=dev)
+                 < self.mix["label_rate"]).to(torch.float32)
+        return {"dense": dense, "sparse": sparse.to(torch.int32),
+                "label": label}
+
+
 def batch(cfg, mix, seed: int, k: int, device):
-    """Batch ``k``: ``{"dense" [B, num_dense] f32, "sparse" [B, F] int32,
-    "label" [B] f32}``. Each feature's ids from the mix's ``ids``
-    distribution over its capped cardinality (``zipfian`` with ``theta``,
-    or ``uniform``); dense features uniform on ``[0, 1)``; labels 1 with
-    probability ``label_rate``."""
-    b, nf = mix["batch"], cfg["num_sparse"]
-    g = generator(device, seed, "batch", k)
-    cards = torch.tensor(cardinalities(cfg), dtype=torch.int64,
-                         device=device)
-    u = torch.rand((b, nf), dtype=torch.float64, generator=g, device=device)
-    ids = mix["ids"]
-    if ids["distribution"] == "zipfian":
-        sparse = _zipfian(u, cards, float(ids["theta"]))
-    elif ids["distribution"] == "uniform":
-        sparse = _uniform(u, cards)
-    else:
-        raise ValueError(f"unknown id distribution {ids['distribution']!r}")
-    dense = torch.rand((b, cfg["num_dense"]), generator=g, device=device)
-    label = (torch.rand((b,), generator=g, device=device)
-             < mix["label_rate"]).to(torch.float32)
-    return {"dense": dense, "sparse": sparse.to(torch.int32),
-            "label": label}
+    """Batch ``k`` of a run (:class:`Draw`)."""
+    return Draw(cfg, mix, seed, device)(k)
 
 
 class Pool:
-    """``n`` batches made at set-up, served in order; batch ``k`` past the
-    last is batch ``k % n`` again (the traffic file sizes ``n`` beyond the
-    steps a window takes now, so only a faster program repeats)."""
+    """Batches ``0 .. n - 1`` of a run, made at set-up and served in
+    order. Batch ``k`` past the last is drawn when it is asked for, never
+    served again: a repeated batch would find its missed keys inserted by
+    its first pass and skip the lookup's miss branch. The traffic file
+    sizes ``n`` beyond the steps a window takes, so that the window draws
+    nothing."""
 
     def __init__(self, cfg, mix, seed: int, n: int, device):
-        b, nf = mix["batch"], cfg["num_sparse"]
+        b, cols = mix["batch"], sum(bag_sizes(cfg))
         self.n = n
+        self.draw = Draw(cfg, mix, seed, device)
         self.dense = torch.empty((n, b, cfg["num_dense"]), device=device)
-        self.sparse = torch.empty((n, b, nf), dtype=torch.int32,
+        self.sparse = torch.empty((n, b, cols), dtype=torch.int32,
                                   device=device)
         self.label = torch.empty((n, b), device=device)
         for k in range(n):
-            one = batch(cfg, mix, seed, k, device)
+            one = self.draw(k)
             self.dense[k], self.sparse[k] = one["dense"], one["sparse"]
             self.label[k] = one["label"]
 
     def __getitem__(self, k: int):
-        i = k % self.n
-        return {"dense": self.dense[i], "sparse": self.sparse[i],
-                "label": self.label[i]}
+        if k >= self.n:
+            return self.draw(k)
+        return {"dense": self.dense[k], "sparse": self.sparse[k],
+                "label": self.label[k]}

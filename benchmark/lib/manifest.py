@@ -1,7 +1,19 @@
 """``BENCHMARK.json`` and the files it names: a cell's configuration, its
 traffic mix (``benchmark/traffic/<mix>.json``) and its correctness limits
 (``benchmark/limits/<cell>.json``). Everything of one configuration, mix
-or metric sits in files of its own, found by name."""
+or metric sits in files of its own, found by name.
+
+Sparse features in a configuration: ``num_sparse`` features, each with
+one id per example, unless the file gives ``multi_hot_sizes``, one count
+per feature: the ids per example of that feature's bag. A bag is pooled
+by ``pooling``, whose only value taken is ``"sum"`` (also the default);
+any other raises. A batch then has ``sum(multi_hot_sizes)`` id columns,
+grouped by feature in feature order. Each bag is made from one id drawn
+by the mix's ``ids`` distribution over the feature's capped vocabulary,
+as MLPerf's DLRM-DCNv2 reference makes its multi-hot Criteo 1TB: the
+drawn id first, then that id's row of a fixed table uniform over the
+vocabulary. The schema is read by ``lib/inputs.py`` (``bag_sizes``,
+``column_features``, ``bags``)."""
 
 from __future__ import annotations
 

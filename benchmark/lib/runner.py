@@ -88,7 +88,8 @@ def setup(cfg, mix, seed: int, device, pool_batches: int,
                 next_batch=0, check_s=0.0, stages=stages)
     # the checked steps: the window's own call, one step at a time
     shift, nsteps = cfg["feature_shift"], int(mix["check_steps"])
-    keys = [inputs.tag(pool[k]["sparse"], shift).reshape(-1)
+    cols = inputs.column_features(cfg, device)
+    keys = [inputs.tag(pool[k]["sparse"], shift, cols).reshape(-1)
             for k in range(nsteps)]
     losses = []
     for k in range(nsteps):
@@ -145,8 +146,10 @@ def traced(session: Session, device_kind: str):
     (_, window_s, busy_s, ops, ranges, gaps,
      counters) = trace.profile_steps(lambda: _loop(session, steps=n))
     shift = session.cfg["feature_shift"]
-    uniq = [int(torch.unique(inputs.tag(session.pool[k]["sparse"], shift)
-                             ).numel()) for k in range(first, first + n)]
+    cols = inputs.column_features(session.cfg, session.device)
+    uniq = [int(torch.unique(inputs.tag(session.pool[k]["sparse"], shift,
+                                        cols)).numel())
+            for k in range(first, first + n)]
     n_sync = int(tr["sync_steps"])
     trainer = session.trainer
 

@@ -8,7 +8,9 @@ configuration's documented semantics:
   the buckets can hold are written, the rest dropped; evictions by score;
   every touched key stamped with the step (``1, 2, 3``);
 * the loss: mean binary cross-entropy of the family's logits
-  (:mod:`.models`);
+  (:mod:`.models`), whose ``[B, F, D]`` input is each feature's bag of
+  looked-up rows summed (:func:`pool_bags`; without bags, the rows
+  themselves);
 * the row-wise Adagrad on each written key, its gradient summed over the
   key's occurrences (in float64, rounded once);
 * Adagrad in optax's form on every dense leaf.
@@ -28,6 +30,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from benchmark.lib import inputs
 from benchmark.reference import dense as ref_dense
 from benchmark.reference import hashing, threefry
 from benchmark.reference.table import BucketTable, _rank_in_group
@@ -67,6 +70,43 @@ def segment_sum(g: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     return sums.to(torch.float32)
 
 
+def pool_bags(emb: torch.Tensor, features: torch.Tensor,
+              nf: int) -> torch.Tensor:
+    """``[B, N, D]`` rows, column ``j`` of feature ``features[j]`` ->
+    ``[B, nf, D]``: each feature's columns summed in float64, rounded to
+    float32 once (``emb`` itself where every bag holds one id). Summed in
+    float32, a 100-id bag would carry up to 99 roundings, which a program
+    that sums more exactly would be charged for."""
+    if emb.shape[1] == nf:
+        return emb
+    out = torch.zeros((emb.shape[0], nf, emb.shape[2]), dtype=torch.float64,
+                      device=emb.device)
+    return out.index_add_(1, features, emb.double()).to(emb.dtype)
+
+
+def forward_backward(cfg, w: Dict[str, torch.Tensor], batch: dict,
+                     v: torch.Tensor, inv: torch.Tensor,
+                     rows: Optional[int] = None):
+    """One step's loss over the first ``rows`` examples (default all) and
+    its gradients, from ``v [U, D]``, the rows of the batch's unique keys
+    that each position ``inv`` points at: ``(loss, {leaf: gradient},
+    g [U, D])``, ``g`` each key's gradient summed over its positions
+    (:func:`segment_sum`)."""
+    names = sorted(w)
+    b, dim = batch["dense"].shape[0], cfg["dim"]
+    rows = b if rows is None else rows
+    leaves = {k: w[k].clone().requires_grad_(True) for k in names}
+    emb = v[inv].reshape(b, -1, dim).detach().requires_grad_(True)
+    pooled = pool_bags(emb, inputs.column_features(cfg, emb.device),
+                       cfg["num_sparse"])
+    logit = ref_dense.logits(cfg, leaves, batch["dense"][:rows],
+                             pooled[:rows])
+    loss = ref_dense.sigmoid_bce(logit, batch["label"][:rows])
+    grads = torch.autograd.grad(loss, [leaves[k] for k in names] + [emb])
+    g = segment_sum(grads[-1].reshape(-1, dim), inv, v.shape[0])
+    return loss.detach(), dict(zip(names, grads[:-1])), g
+
+
 def prefill_resident(table: BucketTable, keys: torch.Tensor,
                      scores: torch.Tensor, positions: torch.Tensor,
                      chunk: int) -> None:
@@ -103,9 +143,9 @@ def run(cfg, mix, seed: int, prefill, weights: Dict[str, torch.Tensor],
     nb = cfg["table_slots"] // bsz
     topt, dopt = cfg["table_optimizer"], cfg["dense_optimizer"]
     acc0 = float(topt["initial_accumulator_value"])
-    step_keys = [(batch["sparse"].to(torch.int64)
-                  | (torch.arange(cfg["num_sparse"], device=dev) << shift)
-                  ).reshape(-1) for batch in batches]
+    cols = inputs.column_features(cfg, dev)
+    step_keys = [inputs.tag(batch["sparse"], shift, cols).reshape(-1)
+                 for batch in batches]
     keys3 = torch.unique(torch.cat(step_keys))
     modelled = torch.zeros(nb, dtype=torch.bool, device=dev)
     modelled[hashing.bucket_of(keys3, nb)] = True
@@ -164,16 +204,8 @@ def run(cfg, mix, seed: int, prefill, weights: Dict[str, torch.Tensor],
                 v[0] += 1.0
             b = batch["dense"].shape[0]
             rows = b // 2 if fault == "half_batch" else b
-            leaves = {k: w[k].clone().requires_grad_(True) for k in names}
-            emb = v[inv].reshape(b, cfg["num_sparse"], dim)
-            emb = emb.detach().requires_grad_(True)
-            logit = ref_dense.logits(cfg, leaves, batch["dense"][:rows],
-                                     emb[:rows])
-            loss = ref_dense.sigmoid_bce(logit, batch["label"][:rows])
-            grads = torch.autograd.grad(loss, [leaves[k] for k in names]
-                                        + [emb])
-            losses.append(float(loss.detach()))
-            g = segment_sum(grads[-1].reshape(-1, dim), inv, u.shape[0])
+            loss, dgrads, g = forward_backward(cfg, w, batch, v, inv, rows)
+            losses.append(float(loss))
             na = a + g * g
             nv = v - float(topt["learning_rate"]) * g / (
                 torch.sqrt(na) + float(topt["epsilon"]))
@@ -181,7 +213,8 @@ def run(cfg, mix, seed: int, prefill, weights: Dict[str, torch.Tensor],
             store_a[ui[written]] = na[written]
             with torch.no_grad():
                 lr, eps = float(dopt["learning_rate"]), float(dopt["epsilon"])
-                for k, gk in zip(names, grads[:-1]):
+                for k in names:
+                    gk = dgrads[k]
                     acc = gk * gk + dacc[k]
                     inv_s = torch.where(acc > 0, torch.rsqrt(acc + eps), 0.0)
                     w[k] = w[k] + (-lr * (inv_s * gk))

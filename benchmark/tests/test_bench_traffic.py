@@ -49,7 +49,8 @@ def test_zipfian_ids_follow_ycsb():
     n, theta, draws = 1000, 0.99, 400_000
     u = torch.rand((draws, 1), dtype=torch.float64,
                    generator=torch.Generator().manual_seed(7))
-    ranks = inputs._zipfian(u, torch.tensor([n]), theta)[:, 0]
+    ranks = inputs._zipfian(u, torch.tensor([n]), theta,
+                            inputs._zeta((n,), theta, "cpu"))[:, 0]
     assert int(ranks.min()) == 0 and int(ranks.max()) <= n - 1
     zeta = sum(i ** -theta for i in range(1, n + 1))
     freq = torch.bincount(ranks, minlength=n).double() / draws
@@ -78,13 +79,16 @@ def test_mixes_differ_in_their_ids_only():
     assert float((b["sparse"][:, 0] < 10).float().mean()) < 0.1
 
 
-def test_pool_serves_in_order_and_repeats_past_its_end():
-    cfg, mix = _mix("dlrm-criteo-tb.zipf-warm")
+@pytest.mark.parametrize("cell", CELLS)
+def test_pool_serves_in_order_and_draws_past_its_end(cell):
+    cfg, mix = _mix(cell)
     pool = inputs.Pool(cfg, mix, SEED, 3, "cpu")
-    one = inputs.batch(cfg, mix, SEED, 1, "cpu")
-    for k in (1, 4):
+    for k in (1, 4, 5):
+        one = inputs.batch(cfg, mix, SEED, k, "cpu")
         for key in one:
             assert torch.equal(pool[k][key], one[key])
+    # past its end a batch is new, not one served before
+    assert not torch.equal(pool[4]["sparse"], pool[1]["sparse"])
 
 
 @pytest.mark.parametrize("cell", CELLS)
