@@ -149,7 +149,20 @@ Phases (any failure exits non-zero):
    and rows within rtol 1e-5 / atol 1e-6. (d) Each family's run_demo
    with the JAX package's test seeds and sizes, held to the JAX tests'
    bars (MovieLens eval MSE < 1.0, multi-hot < 2.0, retrieval recall >
-   0.8, DCN AUC > 0.6, seq-and-dense eval MSE < 0.5).
+   0.8, DCN AUC > 0.6, seq-and-dense eval MSE < 0.5). (e) DLRM-DCNv2
+   at MLPerf Training's published widths (DLRMDCNv2Config(): dim 128,
+   26 sum-pooled bags of MLPerf's sizes, 214 ids an example, bottom
+   13-512-256-128, 3 low-rank crosses of 3,456 x 512, over arch
+   3456-1024-1024-512-256-1; a 4Mi-slot table with its Adagrad
+   accumulator, rows of 1 KiB): 3 steps of 8,192 examples (1,753,088
+   positions, ~850k distinct keys; batches 0, 1, 1: an empty table's
+   inserts, the miss branch, the all-hit branch) with the launch counts
+   set to 0 just before (row_gather, fused_update_scatter and init_rows
+   must launch), the losses finite; then one more step on a new batch
+   and that batch again (the lookup's miss and all-hit branches), each
+   step's own calls of row_gather (bit-exact), fused_update_scatter (4
+   f32 ulps) and, on the miss step, init_rows (bit-exact) against their
+   plain versions.
 7. The table lifecycle, launch counts reset first (row_gather,
    row_scatter and fused_update_scatter must launch). (a) DLRMConfig()
    trains 20 steps of 4096; DECheckpoint saves its table, towers and
@@ -289,8 +302,8 @@ Phases (any failure exits non-zero):
 Each main path (serving, the gRPC handler, DLRM training, table step,
 the optax adapter, the named Adam beside it, the sharded adapter, the
 five parts of
-the training surface, the DCN, the sparse API, the learning bars, the
-lifecycle, sharded training, the sharded checkpoint, the six parts of
+the training surface, the DCN, the sparse API, the learning bars,
+DLRM-DCNv2, the lifecycle, sharded training, the sharded checkpoint, the six parts of
 the spill phase, the dtypes phase's fills, lookups, f64 training and
 checkpoints, the data phase's five runs, each example, dma_bench,
 ab_kernel_cost, ab_radix_plan) is driven with the kernels' launch
@@ -368,6 +381,13 @@ SHARDS = 4  # the sharded phase's logical shards of the card
 SHARD_CHECK_STEPS = 3
 SHARD_RTOL, SHARD_ATOL = 1e-5, 1e-6  # tests/test_sharded.py:110-113
 SPARSE_ROWS, SPARSE_LEN, SPARSE_CAP = 8192, 8, 1 << 18
+# the models phase's DLRM-DCNv2 at MLPerf's published widths: the
+# benchmark cell's 8,192 examples of 214 ids (1,753,088 positions), each
+# bag's first id zipf(1.1) over 1Mi ids a feature and the rest a fixed
+# function of it, as MLPerf's Multihot builds bags (~850k distinct keys a
+# batch), in a table of 4Mi slots; main-path steps on batches 0, 1, 1
+DCNV2_BATCH, DCNV2_ZIPF, DCNV2_VOCAB, DCNV2_CAP = 8192, 1.1, 1 << 20, 1 << 22
+DCNV2_PLAN = (0, 1, 1)
 # the lifecycle phase: DLRM's steps before the checkpoint and after the
 # restore (losses of the two within LIFE_LOSS_RTOL); a table of the table
 # step's width filled with LIFE_N keys, restricted to LIFE_RESERVED,
@@ -2007,13 +2027,117 @@ def _own_call_check(torch, cuda_ops, one_step, n_fused, n_gathers, what):
             "fused_own_call_trash_share": trash}
 
 
+def _dcnv2_batch(rng, sizes):
+    """DCNV2_BATCH examples of MLPerf's bags (see DCNV2_ZIPF): ``sparse``
+    [B, sum(sizes)] raw ids, columns grouped by feature."""
+    b, vocab = DCNV2_BATCH, np.uint64(DCNV2_VOCAB)
+    cols = []
+    for f, s in enumerate(sizes):
+        first = rng.zipf(DCNV2_ZIPF, size=b).astype(np.uint64) % vocab
+        cols.append(first)
+        for j in range(1, s):
+            h = first * np.uint64(0x9E3779B97F4A7C15) + np.uint64(j * 7919 + f)
+            cols.append((h ^ (h >> np.uint64(31))) % vocab)
+    return {"dense": rng.normal(size=(b, 13)).astype(np.float32),
+            "sparse": np.stack(cols, 1).astype(np.int64),
+            "label": (rng.random(b) < 0.5).astype(np.float32)}
+
+
+def _own_init_rows_check(torch, cuda_ops, calls, what):
+    """Kernel 10 on a step's recorded calls against its plain version,
+    bit-exact on int32 views. Returns the number of calls checked."""
+    for a in calls:
+        got, want = a["rows"].clone(), a["rows"]
+        rest = {k: v for k, v in a.items() if k != "rows"}
+        cuda_ops.init_rows(got, **rest)
+        cuda_ops.init_rows_plain(want, **rest)
+        err = _same_bits(torch, got, want)
+        if err:
+            raise AssertionError(f"init_rows on a {what}'s operands: "
+                                 f"{err} apart")
+    return len(calls)
+
+
+def _dcnv2_part(torch, cuda_ops, dev, seed):
+    """Models phase (e): DLRMDCNv2() at MLPerf's published widths (dim 128,
+    bottom 13-512-256-128, 3 low-rank crosses of 3,456 x 512, over arch
+    3456-1024-1024-512-256-1, Adagrad on the table and the towers) on a
+    DCNV2_CAP-slot table: the main-path steps of DCNV2_PLAN with the launch
+    counts set to 0 just before and read just after (kernels 1, 3 and 10
+    must launch), then kernels 1, 3 and 10 on one more step's own calls
+    against their plain versions, on a new batch (the lookup's miss
+    branch) and on that batch again (its all-hit branch)."""
+    from recommenders_addons_tpu_torch import dynamic_embedding as de
+    from recommenders_addons_tpu_torch.models import dlrm_dcnv2
+    from recommenders_addons_tpu_torch.tools import fused_sweep as fs
+
+    model = dlrm_dcnv2.DLRMDCNv2(
+        dlrm_dcnv2.DLRMDCNv2Config(table_capacity=DCNV2_CAP), device=dev)
+    cfg = model.cfg
+    state = model.init(seed)
+    state = dataclasses.replace(
+        state, table=de.create_slots(model.var, state.table, model.opt))
+    train_step, tx = model.make_train_step()
+    opt_state = [tx.init(list(state.dense.parameters()))]
+    rng = np.random.default_rng(seed)
+    batches = [_on(torch, _dcnv2_batch(rng, cfg.multi_hot_sizes), dev)
+               for _ in range(max(DCNV2_PLAN) + 2)]
+    holder = [state]
+
+    def step(batch):
+        holder[0], opt_state[0], loss = train_step(holder[0], opt_state[0],
+                                                   batch)
+        return loss
+
+    cuda_ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(batches[i])) for i in DCNV2_PLAN]
+    wall_s = time.perf_counter() - t0
+    launches = _launched(cuda_ops, "(e) DLRM-DCNv2",
+                         ("row_gather", "fused_update_scatter", "init_rows"),
+                         "models")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"DLRM-DCNv2 losses not finite: {losses}")
+    distinct = [int(torch.unique(model.bags(b["sparse"]).values).numel())
+                for b in batches]
+    out = {"config": "DLRMDCNv2Config() at MLPerf's widths, table "
+                     f"{DCNV2_CAP} slots + Adagrad accumulator, f32",
+           "batch": DCNV2_BATCH, "positions": DCNV2_BATCH
+           * cfg.ids_per_example, "distinct_keys": distinct,
+           "plan": list(DCNV2_PLAN), "losses": losses,
+           "main_path_wall_s": wall_s, "launches": launches,
+           "table_keys_after": int(model.var.size(holder[0].table))}
+    new = batches[-1]
+    for branch in ("miss", "hit"):
+        inits = []
+
+        def one_step():
+            inits.extend(fs.record_calls(lambda: step(new), "init_rows"))
+
+        own = _own_call_check(torch, cuda_ops, one_step, 1, 1,
+                              f"DLRM-DCNv2 {branch} step")
+        n_init = _own_init_rows_check(torch, cuda_ops, inits,
+                                      f"DLRM-DCNv2 {branch} step")
+        if n_init != (1 if branch == "miss" else 0):
+            raise AssertionError(f"the DLRM-DCNv2 {branch} step called "
+                                 f"init_rows {n_init} times")
+        out[branch] = dict(own, init_rows_own_calls=n_init)
+        del inits
+        torch.cuda.empty_cache()
+    del holder, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def models_phase(torch, cuda_ops, dev, seed):
     """Phase 6: the model families on the sparse lookup API. (a) DCNConfig()
     at full width, 20 steps of 4,096 through train_loop, then a check of
     kernels 1 and 3 on one step's own calls; (b) a narrow DCN on card and
     CPU; (c) the sparse API at DCN's table width, card against CPU; (d)
-    the JAX tests' learning bars. Launch counts reset before (a), (c) and
-    (d)."""
+    the JAX tests' learning bars; (e) DLRM-DCNv2 at MLPerf's widths, then
+    kernels 1, 3 and 10 on its step's own calls. Launch counts reset
+    before (a), (c), (d) and (e)."""
     from recommenders_addons_tpu_torch.models import dcn
 
     if torch.backends.cuda.matmul.allow_tf32:
@@ -2039,7 +2163,8 @@ def models_phase(torch, cuda_ops, dev, seed):
     return {"dcn": dcn_out,
             "narrow_dcn": _narrow_reference(torch, dev, seed, "dcn"),
             "sparse_api": _sparse_api_part(torch, cuda_ops, dev, seed),
-            "learning_bars": _learning_bars(torch, cuda_ops)}
+            "learning_bars": _learning_bars(torch, cuda_ops),
+            "dcnv2": _dcnv2_part(torch, cuda_ops, dev, seed)}
 
 
 def _per_key(torch, var, st):
@@ -4393,6 +4518,7 @@ def main(argv=None) -> int:
              "models_dcn": models["dcn"]["launches"],
              "models_sparse_api": models["sparse_api"]["launches"],
              "models_learning_bars": models["learning_bars"]["launches"],
+             "models_dcnv2": models["dcnv2"]["launches"],
              "lifecycle": life["launches"], **sharded["launches"],
              **spill["launches"], **dtypes["launches"],
              **data["launches"], **examples["launches"],
@@ -4407,6 +4533,9 @@ def main(argv=None) -> int:
             k["sharded_step_max_abs_err"] = sharded["full_width"][
                 "row_gather_own_calls_max_abs_err"]
             k["f64_step"] = dtypes["own_calls"]["gather"]
+            k["dcnv2_step_max_abs_err"] = max(
+                models["dcnv2"][b]["row_gather_own_calls_max_abs_err"]
+                for b in ("miss", "hit"))
         if k["name"] == "row_scatter":
             k["f64_step"] = dtypes["own_calls"]["scatter"]
         if k["name"] == "fused_update_scatter":
@@ -4414,6 +4543,12 @@ def main(argv=None) -> int:
                 "fused_own_call_ulps_max_abs_err"]
             k["sharded_step_ulps_max_abs_err"] = sharded["full_width"][
                 "fused_own_call_ulps_max_abs_err"]
+            k["dcnv2_step_ulps_max_abs_err"] = [
+                max(models["dcnv2"][b]["fused_own_call_ulps_max_abs_err"][i]
+                    for b in ("miss", "hit")) for i in (0, 1)]
+        if k["name"] == "init_rows":
+            k["dcnv2_step_calls"] = models["dcnv2"]["miss"][
+                "init_rows_own_calls"]
     if "jax" in sys.modules or "recommenders_addons_tpu" in sys.modules:
         raise AssertionError("the port run imported JAX or the JAX package")
     if "grpc" in sys.modules:

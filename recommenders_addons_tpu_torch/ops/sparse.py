@@ -18,6 +18,11 @@ COMBINED output back to one gradient per looked-up id, computed from what
 the context stores (no autograd graph is kept). Each lookup takes
 ``sharded=`` (a ``parallel.ShardedVariable`` of ``var``) to route its
 rows through the shards; ``apply_sparse_gradients`` then takes it too.
+
+:func:`embedding_lookup_sparse`'s combine runs inside a profiler range
+named :data:`COMBINE_RANGE`, and :func:`apply_sparse_gradients`' backward
+through the combiner inside :data:`ROW_GRADIENT_RANGE`, so that a trace
+splits them from the table's own lookup and apply.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ import torch
 
 from recommenders_addons_tpu_torch.ops import hashing, segment
 from recommenders_addons_tpu_torch.ops.variable import Variable
+
+COMBINE_RANGE = "embedding_lookup_sparse.combine"
+ROW_GRADIENT_RANGE = "apply_sparse_gradients.row_gradient"
 
 
 @dataclasses.dataclass
@@ -212,7 +220,8 @@ def apply_sparse_gradients(lookup_obj, state, sctx: SparseLookupContext,
     """Optimizer step on the rows a combined lookup touched: the gradient
     of the combined output back through the combiner, then the ordinary
     sparse apply."""
-    g_rows = sctx.row_gradient(g_combined)
+    with torch.profiler.record_function(ROW_GRADIENT_RANGE):
+        g_rows = sctx.row_gradient(g_combined)
     return lookup_obj.apply_gradients(state, sctx.inner, g_rows, optimizer,
                                       step=step, epoch=epoch)
 
@@ -272,8 +281,9 @@ def embedding_lookup_sparse(var: Variable, state, sp_ids: IdsLike,
         emb, ctx = lookup_obj.embedding_lookup(state, flat)
     else:
         emb = lookup_obj.lookup(state, flat)
-    combined, denom = segment.combine_with_denominator(
-        emb, seg, nrows, weights=w, combiner=combiner)
+    with torch.profiler.record_function(COMBINE_RANGE):
+        combined, denom = segment.combine_with_denominator(
+            emb, seg, nrows, weights=w, combiner=combiner)
     combined = combined.reshape(batch_shape + (var.dim,))
     if not training:
         return combined
